@@ -10,16 +10,25 @@ Phases (any failure exits non-zero before the final line):
   3. kernels vs their plain PyTorch versions on the card, exact equality
      (integer DP: tolerance 0) over DNA/protein penalties, byte/word
      geometry, L buckets 64..512 (+ generic-variant widths), ragged B and R,
-     the int16 tier of forward_shared, terminate and emit_maxcol
+     the int16 tier of forward_shared, terminate and emit_maxcol, and the
+     blockmax mode of both forward kernels (valid_len inside the last
+     blocks, score/ends equal to the base mode's on the same inputs)
   4. the ssw_test main path (ssw_tpu_torch.cli.main) on the card, byte-equal
-     to the reference-binary captures in tests/golden (configs 1-3)
-  5. config 4 at real size: >= 8192 Illumina-like 100 bp reads sampled from
-     tests/data/1M.fa, -c -s -h -r; reads/s, GCUPS, peak device memory and
-     the share of reads whose begin is the sampled position.  Launch counts
-     are set to 0 before phase 4 and read after phase 5: configs 1-4 are the
-     main path, and each kernel must have run in it.
-  6. kernel timing at the largest shapes phases 4-5 gave each kernel, beside
-     the plain version and the integer-ALU bound; prints the
+     to the reference-binary captures in tests/golden (configs 1-3), then
+     every golden again with the streaming suboptimal scan forced
+  5. config 4 at real size: 8192 Illumina-like 100 bp reads sampled from
+     tests/data/1M.fa, -c -s -h -r, run with the full (B, R) suboptimal
+     scan and streaming in turns (full, streaming, streaming, full); the SAM
+     outputs must be byte-equal.  reads/s, GCUPS, phase seconds, peak
+     device memory and the share of reads whose POS is the sampled
+     position, for each run.
+  5b. a 10 Mbp target (1M.fa and nine copies of it with 5 % seeded
+     substitutions, one record) with 4096 reads, streaming by the default
+     rule; the first 256 reads again with the full scan, byte-equal.
+     Launch counts are set to 0 before phase 4 and read after phase 5b:
+     these are the main path, and each kernel must have run in it.
+  6. kernel timing at the largest shapes phases 4-5b gave each kernel,
+     beside the plain version and the integer-ALU bound; prints the
      {"kernels": [...]} line
 
 The last line of stdout is {"ok": true, "device": {...}}.  Imports nothing
@@ -45,6 +54,10 @@ GOLD = os.path.join(ROOT, "tests", "golden")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 INT32_LANES_PER_SM = 64     # INT32 lanes per SM per clock (Hopper white paper)
 CONFIG4_READS = 8192        # BASELINE config 4 cut from 100k reads (depth)
+TARGET10M_COPIES = 9        # 1M.fa + 9 mutated copies: BASELINE config 5's
+                            # 10 Mbp on one card
+TARGET10M_READS = 4096      # config 5 cut to 4096 reads (depth)
+TARGET10M_FULL_READS = 256  # of those, run again with the full scan
 SLICE_COLS = 32768          # target columns of the forward kernel's timed
                             # slice, short enough for its plain version
 
@@ -170,49 +183,66 @@ def phase_kernels(torch, dev):
                            gO=gO, gE=gE, quirk=quirk, term=term, emit=emit,
                            seed=300 + j)))
     worst = {name: 0 for name in cuda_sw.LAUNCHES}
+
+    def shared_modes(label, args, gO, gE, quirk, max_sub, valid_len):
+        """Both modes of every eligible tier of forward_shared against the
+        plain versions; blockmax score/ends against the base mode's on the
+        same launch inputs."""
+        want = scan_sw.forward_shared_ref(*args, gO, gE, quirk)
+        want_bm = scan_sw.forward_shared_ref(*args, gO, gE, quirk,
+                                             blockmax=True,
+                                             valid_len=valid_len)
+        L = int(args[0].shape[2])
+        tiers = [None] + ([max_sub] if cuda_sw.i16_exact(
+            L, gO, gE, max_sub, quirk) else [])
+        for ms in tiers:
+            got = cuda_sw.forward_shared(*args, gO, gE, quirk, max_sub=ms)
+            got_bm = cuda_sw.forward_shared(*args, gO, gE, quirk,
+                                            max_sub=ms, blockmax=True,
+                                            valid_len=valid_len)
+            torch.cuda.synchronize()
+            for bm, g, w in ((False, got, want), (True, got_bm, want_bm)):
+                name = cuda_sw.shared_kernel_name(ms is not None, bm)
+                err = max_abs_diff(torch, g, w)
+                worst[name] = max(worst[name], err)
+                log(f"  {label} {name}"
+                    + (f" valid_len={valid_len}" if bm else "")
+                    + f": max_abs_err {err}")
+                check(err == 0, f"{label} {name}: kernel != plain "
+                      f"(max_abs_err {err})")
+            check(max_abs_diff(torch, got_bm[:3], got[:3]) == 0,
+                  f"{label}: blockmax score/ends differ from the base "
+                  f"mode's")
+
     for label, kind, kw in cases:
         if kind == "shared":
             args, _, _ = make_shared(torch, common, dev, B=kw["B"], L=kw["L"],
                                      R=kw["R"], mat=kw["mat"],
                                      word=kw["word"], seed=kw["seed"])
-            want = scan_sw.forward_shared_ref(*args, kw["gO"], kw["gE"],
-                                              kw["quirk"])
-            max_sub = int(np.abs(kw["mat"]).max())
-            if cuda_sw.i16_exact(kw["L"], kw["gO"], kw["gE"], max_sub,
-                                 kw["quirk"]):
-                got = cuda_sw.forward_shared(*args, kw["gO"], kw["gE"],
-                                             kw["quirk"], max_sub=max_sub)
-                torch.cuda.synchronize()
-                err = max_abs_diff(torch, got, want)
-                worst["forward_shared_i16"] = max(
-                    worst["forward_shared_i16"], err)
-                log(f"  {label} int16 tier: max_abs_err {err}")
-                check(err == 0, f"{label} int16 tier: kernel != plain "
-                      f"(max_abs_err {err})")
-            got = cuda_sw.forward_shared(*args, kw["gO"], kw["gE"],
-                                         kw["quirk"])
-            name = "forward_shared"
-        else:
-            args = make_perread(torch, common, dev, B=kw["B"], L=kw["L"],
-                                W=kw["W"], mat=kw["mat"], word=kw["word"],
-                                seed=kw["seed"])
-            term = None
-            if kw["term"]:
-                base = scan_sw.forward_perread_ref(*args, kw["gO"], kw["gE"],
-                                                   kw["quirk"])
-                t = base[0].clone()
-                t[::2] = -1
-                term = t.contiguous()
-            got = cuda_sw.forward_perread(*args, kw["gO"], kw["gE"],
-                                          kw["quirk"], terminate=term,
-                                          emit_maxcol=kw["emit"])
-            want = scan_sw.forward_perread_ref(*args, kw["gO"], kw["gE"],
-                                               kw["quirk"], terminate=term,
-                                               emit_maxcol=kw["emit"])
-            name = "forward_perread"
+            # valid_len inside the last block, not a multiple of 256: the
+            # target's columns run past it
+            shared_modes(label, args, kw["gO"], kw["gE"], kw["quirk"],
+                         int(np.abs(kw["mat"]).max()), kw["R"] - 37)
+            continue
+        args = make_perread(torch, common, dev, B=kw["B"], L=kw["L"],
+                            W=kw["W"], mat=kw["mat"], word=kw["word"],
+                            seed=kw["seed"])
+        term = None
+        if kw["term"]:
+            base = scan_sw.forward_perread_ref(*args, kw["gO"], kw["gE"],
+                                               kw["quirk"])
+            t = base[0].clone()
+            t[::2] = -1
+            term = t.contiguous()
+        got = cuda_sw.forward_perread(*args, kw["gO"], kw["gE"],
+                                      kw["quirk"], terminate=term,
+                                      emit_maxcol=kw["emit"])
+        want = scan_sw.forward_perread_ref(*args, kw["gO"], kw["gE"],
+                                           kw["quirk"], terminate=term,
+                                           emit_maxcol=kw["emit"])
         torch.cuda.synchronize()
         err = max_abs_diff(torch, got, want)
-        worst[name] = max(worst[name], err)
+        worst["forward_perread"] = max(worst["forward_perread"], err)
         log(f"  {label}: max_abs_err {err}")
         check(err == 0, f"{label}: kernel != plain (max_abs_err {err})")
     # main-path shape: 256 sampled 100 bp reads vs the first 32768 columns
@@ -234,15 +264,8 @@ def phase_kernels(torch, dev):
     t = lambda a: torch.as_tensor(np.ascontiguousarray(a)).to(dev)
     args = (t(prof), t(codes[:R].astype(np.int32)), t(read_len),
             t(geo.col_mask), t(geo.seg_id), t(geo.seg_start))
-    want = scan_sw.forward_shared_ref(*args, 3, 1, False)
-    for name, max_sub in (("forward_shared", None),
-                          ("forward_shared_i16", 2)):
-        got = cuda_sw.forward_shared(*args, 3, 1, False, max_sub=max_sub)
-        torch.cuda.synchronize()
-        err = max_abs_diff(torch, got, want)
-        worst[name] = max(worst[name], err)
-        log(f"  {name} 256 x 100 bp vs 1M.fa[:32768]: max_abs_err {err}")
-        check(err == 0, f"main-shape {name} != plain")
+    shared_modes("256 x 100 bp vs 1M.fa[:32768]", args, 3, 1, False, 2,
+                 R - 100)
     return worst
 
 
@@ -269,7 +292,7 @@ def run_cli(cli, args, dev):
     return rc, out.getvalue(), err.getvalue()
 
 
-def phase_golden(dev, scratch):
+def phase_golden(dev, scratch, label):
     from ssw_tpu_torch import cli
 
     def path(a):
@@ -281,13 +304,13 @@ def phase_golden(dev, scratch):
         rc, out, _ = run_cli(cli, [path(a) for a in args], dev)
         with open(os.path.join(GOLD, gold)) as f:
             same = out == f.read()
-        log(f"  {gold}: rc {rc} byte-equal {same} "
+        log(f"  {label} {gold}: rc {rc} byte-equal {same} "
             f"({time.perf_counter() - t0:.2f} s)")
-        check(rc == 0 and same, f"golden {gold} differs")
+        check(rc == 0 and same, f"golden {gold} differs ({label})")
     rc, out, _ = run_cli(cli, [path("-c"), path("target2.fa"),
                                path("query2.fa")], dev)
     check(rc == 0 and out == "", "headerless target2.fa produced output")
-    log("  target2.fa (headerless): no records, as the reference")
+    log(f"  {label} target2.fa (headerless): no records, as the reference")
     # BASELINE config 2: BLOSUM62 matrix file, from a controlled cwd with
     # the uppercase names the capture was taken with (see cli.parse_args)
     d = os.path.join(scratch, "b62")
@@ -304,8 +327,9 @@ def phase_golden(dev, scratch):
         os.chdir(cwd)
     with open(os.path.join(GOLD, "g_prot_b62_blast.txt")) as f:
         same = out == f.read()
-    log(f"  g_prot_b62_blast.txt (BLOSUM62 file): rc {rc} byte-equal {same}")
-    check(rc == 0 and same, "golden g_prot_b62_blast.txt differs")
+    log(f"  {label} g_prot_b62_blast.txt (BLOSUM62 file): rc {rc} "
+        f"byte-equal {same}")
+    check(rc == 0 and same, f"golden g_prot_b62_blast.txt differs ({label})")
 
 
 # ------------------------------------------------------------------- phase 5
@@ -327,12 +351,13 @@ def encode_dna(seq: bytes) -> np.ndarray:
     return table[np.frombuffer(seq, np.uint8)]
 
 
-def sample_reads(path, n_reads, seed, read_len=100, err=0.005):
-    """Illumina-like FASTQ sampled from 1M.fa: N-free windows, 0.5 %
+def sample_reads(path, n_reads, seed, genome: bytes, read_len=100,
+                 err=0.005):
+    """Illumina-like FASTQ sampled from `genome`: N-free windows, 0.5 %
     substitutions, half reverse-complemented, Q-ramp qualities.  Returns
     {name: 0-based window start}."""
     bases = np.frombuffer(b"ACGT", np.uint8)
-    g = np.frombuffer(load_genome(), np.uint8)
+    g = np.frombuffer(genome, np.uint8)
     run = np.cumsum(np.isin(g, bases).astype(np.int64))
     win = run[read_len - 1:] - np.concatenate(([0], run[:-read_len]))
     positions = np.nonzero(win == read_len)[0]
@@ -360,30 +385,183 @@ def sample_reads(path, n_reads, seed, read_len=100, err=0.005):
     return truth
 
 
+def make_target10m(path, seed) -> bytes:
+    """1M.fa's sequence followed by TARGET10M_COPIES copies of it, each with
+    5 % seeded substitutions (to another base) at its A/C/G/T positions, as
+    one FASTA record: near-repeats for the suboptimal score.  Returns the
+    sequence."""
+    g = np.frombuffer(load_genome(), np.uint8)
+    code = np.full(256, -1, np.int16)
+    code[np.frombuffer(b"ACGT", np.uint8)] = np.arange(4)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    rng = np.random.default_rng(seed)
+    parts = [g]
+    for _ in range(TARGET10M_COPIES):
+        c = g.copy()
+        idx = code[c]
+        m = (idx >= 0) & (rng.random(len(c)) < 0.05)
+        c[m] = acgt[(idx[m] + rng.integers(1, 4, int(m.sum()))) % 4]
+        parts.append(c)
+    seq = np.concatenate(parts).tobytes()
+    with open(path, "wb") as f:
+        f.write(b">chr3_x10\n")
+        for i in range(0, len(seq), 60):
+            f.write(seq[i:i + 60] + b"\n")
+    return seq
+
+
+def run_sam(torch, dev, target, fq, label, card, truth=None):
+    """cli.main -c -s -h -r on the card under a GcupsCounter: returns the
+    SAM text and the run's numbers (wall ends in a synchronize)."""
+    from ssw_tpu_torch import cli, pipeline, profiling
+
+    counter = profiling.GcupsCounter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with pipeline.profiled(counter):
+        rc, out, err = run_cli(cli, ["-c", "-s", "-h", "-r", target, fq],
+                               dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(rc == 0, f"{label}: cli rc {rc}: {err[-2000:]}")
+    hits = total = 0
+    for line in out.splitlines():
+        if line.startswith("@"):
+            continue
+        f = line.split("\t")
+        total += 1
+        if truth is not None:
+            hits += int(f[3]) - 1 == truth.get(f[0], -10)
+    fwd_s = counter.seconds.get("forward", 0.0)
+    res = {
+        "card": card, "reads": total, "wall_s": wall,
+        "reads_per_s": total / wall, "cells": counter.cells,
+        "gcups_forward_phase": counter.cells / fwd_s / 1e9 if fwd_s else 0.0,
+        "gcups_wall": counter.cells / wall / 1e9,
+        "phase_seconds": counter.seconds, "peak_device_bytes": peak,
+    }
+    if truth is not None:
+        res["begin_at_sampled_pos"] = hits / max(len(truth), 1)
+        check(total == len(truth), f"{label}: {total} SAM records for "
+              f"{len(truth)} reads")
+        check(res["begin_at_sampled_pos"] >= 0.95,
+              f"{label}: only {res['begin_at_sampled_pos']:.4f} of reads "
+              f"begin at the sampled position")
+    log(f"  {label} " + json.dumps(res))
+    return out, res
+
+
+def phase_config4(torch, dev, scratch, n_reads, card):
+    """Config 4 with the full (B, R) suboptimal scan and streaming, in turns
+    (full, streaming, streaming, full): every SAM output must be
+    byte-equal.  pipeline.STREAM_MIN_COLS is set from these walls."""
+    from ssw_tpu_torch import pipeline
+
+    fq = os.path.join(scratch, "illumina_1M.fastq")
+    truth = sample_reads(fq, n_reads, seed=100_000, genome=load_genome())
+    target = os.path.join(DATA, "1M.fa")
+    outs, walls = [], {False: [], True: []}
+    try:
+        for mode in (False, True, True, False):
+            pipeline.STREAM_SUBOPT = mode
+            tags[0] = "5s" if mode else "5"
+            out, res = run_sam(
+                torch, dev, target, fq,
+                "config4 streaming" if mode else "config4 full-scan", card,
+                truth)
+            outs.append(out)
+            walls[mode].append(res["wall_s"])
+    finally:
+        pipeline.STREAM_SUBOPT = None
+    check(all(o == outs[0] for o in outs), "config 4: the streaming SAM "
+          "differs from the full scan's")
+    mean = {m: sum(w) / len(w) for m, w in walls.items()}
+    log(f"  config4: streaming SAM byte-equal to the full scan's "
+        f"({len(outs[0])} bytes); mean wall full {mean[False]:.4f} s, "
+        f"streaming {mean[True]:.4f} s, ratio "
+        f"{mean[True] / mean[False]:.4f}")
+
+
+def phase_target10m(torch, dev, scratch, card):
+    """A 10 Mbp target, streaming by the default rule (the memory rule
+    fires); the first TARGET10M_FULL_READS reads again with the full scan
+    (128-read leaves), byte-equal."""
+    from ssw_tpu_torch import pipeline
+    from ssw_tpu_torch.ops import common
+
+    t0 = time.perf_counter()
+    target = os.path.join(scratch, "target_10M.fa")
+    seq = make_target10m(target, seed=10)
+    fq = os.path.join(scratch, "illumina_10M.fastq")
+    truth = sample_reads(fq, TARGET10M_READS, seed=200_000, genome=seq)
+    Rp = common.bucket_size(len(seq), 256)
+    check(pipeline.STREAM_SUBOPT is None and
+          pipeline._use_streaming(Rp, 128),
+          "the 10 Mbp target does not stream by the default rule")
+    log(f"  target {len(seq)} bp (Rp {Rp}), {TARGET10M_READS} reads, made "
+        f"in {time.perf_counter() - t0:.1f} s; leaf rows streaming "
+        f"{pipeline._rows_per_leaf(Rp, 128, True)}, full scan "
+        f"{pipeline._rows_per_leaf(Rp, 128, False)}")
+    tags[0] = "5b"
+    out, res = run_sam(torch, dev, target, fq, "10M streaming", card, truth)
+    # the first reads, alone, with the full scan
+    fq_small = os.path.join(scratch, "illumina_10M_first.fastq")
+    with open(fq) as f, open(fq_small, "w") as g:
+        for i, line in enumerate(f):
+            if i >= 4 * TARGET10M_FULL_READS:
+                break
+            g.write(line)
+    lines = out.splitlines(keepends=True)
+    head = [ln for ln in lines if ln.startswith("@")]
+    recs = [ln for ln in lines if not ln.startswith("@")]
+    want = "".join(head + recs[:TARGET10M_FULL_READS])
+    pipeline.STREAM_SUBOPT = False
+    tags[0] = "5b_full"
+    try:
+        out_full, res_full = run_sam(torch, dev, target, fq_small,
+                                     f"10M full-scan first "
+                                     f"{TARGET10M_FULL_READS}", card)
+    finally:
+        pipeline.STREAM_SUBOPT = None
+    check(out_full == want, "10 Mbp: the full scan's SAM differs from the "
+          "streaming run's for the same reads")
+    log(f"  10M: the full scan's SAM of the first {TARGET10M_FULL_READS} "
+        f"reads is byte-equal to the streaming run's")
+    return res, res_full
+
+
+# the phase label the recorders file each kernel call under
+tags = ["3"]
+
+
 class Recorder:
-    """Wraps a kernel wrapper to keep the inputs of its largest call per
-    kernel: name_of(args, kwargs) says which kernel a call launches."""
+    """Wraps a kernel wrapper to keep, per kernel and phase, the inputs of
+    its largest call: name_of(args, kwargs) says which kernel a call
+    launches."""
 
     def __init__(self, fn, name_of):
         self.fn, self.name_of, self.calls = fn, name_of, {}
 
     def __call__(self, *args, **kwargs):
-        name = self.name_of(args, kwargs)
+        key = (self.name_of(args, kwargs), tags[0])
         size = args[0].shape[0] * args[1].numel()
-        if size > self.calls.get(name, (-1,))[0]:
-            self.calls[name] = (size, args, kwargs)
+        if size > self.calls.get(key, (-1,))[0]:
+            self.calls[key] = (size, args, kwargs)
         return self.fn(*args, **kwargs)
 
 
 def record_main_path(cuda_sw):
-    """Install recorders on the kernel wrappers; returns {kernel: (args,
-    kwargs) of its largest call} filled as the main path runs, and a
-    function that removes them."""
+    """Install recorders on the kernel wrappers; returns a function that
+    removes them and returns {(kernel, phase): (size, args, kwargs)} of the
+    largest calls."""
     def shared_name(args, kwargs):
         prof, gapO, gapE, quirk = args[0], args[6], args[7], args[8]
-        return ("forward_shared_i16" if cuda_sw.i16_exact(
-            int(prof.shape[2]), gapO, gapE, kwargs.get("max_sub"), quirk)
-            else "forward_shared")
+        return cuda_sw.shared_kernel_name(
+            cuda_sw.i16_exact(int(prof.shape[2]), gapO, gapE,
+                              kwargs.get("max_sub"), quirk),
+            bool(kwargs.get("blockmax")))
 
     recs = (Recorder(cuda_sw.forward_shared, shared_name),
             Recorder(cuda_sw.forward_perread,
@@ -393,50 +571,8 @@ def record_main_path(cuda_sw):
     def restore():
         cuda_sw.forward_shared, cuda_sw.forward_perread = (r.fn
                                                            for r in recs)
-        return {name: call[1:] for r in recs
-                for name, call in r.calls.items()}
+        return {key: call for r in recs for key, call in r.calls.items()}
     return restore
-
-
-def phase_config4(torch, dev, scratch, n_reads, card):
-    from ssw_tpu_torch import cli, pipeline, profiling
-
-    fq = os.path.join(scratch, "illumina_1M.fastq")
-    truth = sample_reads(fq, n_reads, seed=100_000)
-    counter = profiling.GcupsCounter()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
-    with pipeline.profiled(counter):
-        rc, out, err = run_cli(cli, ["-c", "-s", "-h", "-r",
-                                     os.path.join(DATA, "1M.fa"), fq], dev)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated(dev)
-    check(rc == 0, f"config 4 cli rc {rc}: {err[-2000:]}")
-    hits = total = 0
-    for line in out.splitlines():
-        if line.startswith("@"):
-            continue
-        f = line.split("\t")
-        total += 1
-        hits += int(f[3]) - 1 == truth.get(f[0], -10)
-    share = hits / max(n_reads, 1)
-    fwd_s = counter.seconds.get("forward", 0.0)
-    res = {
-        "card": card, "reads": n_reads, "sam_records": total, "wall_s": wall,
-        "reads_per_s": n_reads / wall,
-        "cells": counter.cells,
-        "gcups_forward_phase": counter.cells / fwd_s / 1e9 if fwd_s else 0.0,
-        "gcups_wall": counter.cells / wall / 1e9,
-        "phase_seconds": counter.seconds,
-        "peak_device_bytes": peak, "begin_at_sampled_pos": share,
-    }
-    log("  config4 " + json.dumps(res))
-    check(total == n_reads, f"{total} SAM records for {n_reads} reads")
-    check(share >= 0.95, f"only {share:.4f} of reads begin at the sampled "
-          f"position")
-    return res
 
 
 # ------------------------------------------------------------------- phase 6
@@ -454,6 +590,14 @@ def time_ms(torch, fn, reps):
     return a.elapsed_time(b) / reps
 
 
+def in_turns(torch, fa, fb, reps):
+    """Times of fa and fb timed in turns a, b, b, a on one card."""
+    ta = [time_ms(torch, fa, reps)]
+    tb = [time_ms(torch, fb, reps) for _ in range(2)]
+    ta.append(time_ms(torch, fa, reps))
+    return sum(ta) / 2, sum(tb) / 2
+
+
 def phase_timing(torch, dev, rec, worst, launches, clock_mhz, slice_cols):
     from ssw_tpu_torch.ops import cuda_sw, scan_sw
 
@@ -463,79 +607,115 @@ def phase_timing(torch, dev, rec, worst, launches, clock_mhz, slice_cols):
         f"{clock_mhz} MHz = {int32_rate:.4g} op/s")
     rows = []
 
+    def call(name, tag=None):
+        """(args, kwargs) of the kernel's largest main-path call, or of its
+        largest call in phase `tag`."""
+        got = [(size, key[1], a, kw) for key, (size, a, kw) in rec.items()
+               if key[0] == name and (tag is None or key[1] == tag)]
+        check(got, f"no main-path call of {name}"
+              + (f" in phase {tag}" if tag else ""))
+        _, t, a, kw = max(got, key=lambda g: g[0])
+        return a, kw, t
+
     def bound(ops, nbytes):
         t_ops = ops / int32_rate * 1e3
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes,
                                                                "bytes")
 
-    def shared_bound(opc, prof, cm, cols):
-        # inputs once (profile, target, masks, read_len), outputs once
-        # (int16 maxima, three (B,) int32)
+    def shared_bound(name, prof, cm, cols, quirk):
+        """The recurrence's operations over the lane-cells inside col_mask
+        (plus blockmax's running max per read and column); inputs read once
+        (profile, target, masks, read_len), outputs written once (int16
+        maxima or int32 block maxima, three (B,) int32)."""
         B = prof.shape[0]
+        i16, bm = "_i16" in name, name.endswith("_blockmax")
+        opc = (cuda_sw.OPS_PER_CELL_I16 if i16 else
+               cuda_sw.OPS_PER_CELL_QUIRK if quirk else cuda_sw.OPS_PER_CELL)
+        ops = opc * int(cm.sum()) * cols
+        out_bytes = 2 * B * cols
+        if bm:
+            ops += ((cuda_sw.OPS_PER_COLUMN_BLOCKMAX_I16 if i16 else
+                     cuda_sw.OPS_PER_COLUMN_BLOCKMAX) * B * cols)
+            out_bytes = 4 * B * ((cols + scan_sw.BM - 1) // scan_sw.BM)
         nbytes = (prof.numel() + 4 * cols + 3 * cm.numel() + 4 * B
-                  + 2 * B * cols + 12 * B)
-        return bound(opc * int(cm.sum()) * cols, nbytes)
+                  + out_bytes + 12 * B)
+        return bound(ops, nbytes)
 
-    def shared_row(name, source, replaces):
-        """forward_shared's kernel `name` at its largest main-path call; the
-        plain version and the bound on a column slice of the same inputs
-        when the call is too long for the plain version."""
-        args, kw = rec[name]
+    def shared_row(name, source, replaces, tag=None):
+        """forward_shared's kernel `name` at its largest main-path call (or
+        its largest in phase `tag`); the plain version and the bound on a
+        column slice of the same inputs when the call is too long for the
+        plain version."""
+        args, kw, t = call(name, tag)
         prof, ref, rl, cm, seg, ss, gapO, gapE, quirk = args
         B, n1, L = prof.shape
         R = int(ref.numel())
-        opc = (cuda_sw.OPS_PER_CELL_I16 if name.endswith("_i16") else
-               cuda_sw.OPS_PER_CELL_QUIRK if quirk else cuda_sw.OPS_PER_CELL)
         cols = min(slice_cols, R)
         sl = (prof, ref[:cols].contiguous(), rl, cm, seg, ss, gapO, gapE,
               quirk)
+        plain_kw = {k: v for k, v in kw.items() if k != "max_sub"}
         ms = time_ms(torch, lambda: cuda_sw.forward_shared(*sl, **kw), 5)
         t0 = time.perf_counter()
-        want = scan_sw.forward_shared_ref(*sl)
+        want = scan_sw.forward_shared_ref(*sl, **plain_kw)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         got = cuda_sw.forward_shared(*sl, **kw)
         torch.cuda.synchronize()
         err = max_abs_diff(torch, got, want)
         check(err == 0, f"{name} at the main-path shape: max_abs_err {err}")
-        b_ms, b_by = shared_bound(opc, prof, cm, cols)
+        b_ms, b_by = shared_bound(name, prof, cm, cols, quirk)
         row = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": max(err, worst[name]),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None,
-            "shape": f"B={B} L={L} R={cols} quirk={bool(quirk)}"
+            "shape": f"B={B} L={L} R={cols} quirk={bool(quirk)} phase {t}"
                      + (" (column slice of the leaf)" if cols < R else ""),
         }
         if cols < R:
+            reps = 1 if B * R > (1 << 32) else 3
             row["leaf_ms"] = time_ms(
-                torch, lambda: cuda_sw.forward_shared(*args, **kw), 3)
-            row["leaf_bound_ms"] = shared_bound(opc, prof, cm, R)[0]
+                torch, lambda: cuda_sw.forward_shared(*args, **kw), reps)
+            row["leaf_bound_ms"] = shared_bound(name, prof, cm, R, quirk)[0]
             row["leaf_shape"] = f"B={B} L={L} R={R}"
-        return row
+        return row, args, kw
 
-    rows.append(shared_row(
+    def base_vs_blockmax(row, name, args, base, blockmax):
+        """The base and blockmax modes of one kernel on the same launch
+        inputs (the config-4 streaming leaf), timed in turns: the cost of
+        the per-column stores shows as their difference."""
+        prof, ref, _, cm, _, _, _, _, quirk = args
+        base_ms, bm_ms = in_turns(torch, base, blockmax, 2)
+        row["config4_leaf"] = {
+            "base_ms": base_ms, "blockmax_ms": bm_ms,
+            "blockmax_bound_ms": shared_bound(name, prof, cm,
+                                              int(ref.numel()), quirk)[0],
+            "shape": f"B={prof.shape[0]} L={prof.shape[2]} "
+                     f"R={ref.numel()}"}
+
+    row, _, _ = shared_row(
         "forward_shared", "ssw_tpu_torch/csrc/sw_forward.cu",
         "ssw_tpu/ops/pallas_sw.py:109 (_forward_kernel, base mode, int32; "
-        "pallas_call at :557)"))
-    row = shared_row(
+        "pallas_call at :557)")
+    rows.append(row)
+    row, c4, c4kw = shared_row(
         "forward_shared_i16", "ssw_tpu_torch/csrc/sw_forward_i16.cu",
         "ssw_tpu/ops/pallas_sw.py:109 (_forward_kernel, int16 tier: use_i16 "
-        "chosen at :735, pallas_call at :557; probe _i16_supported :576)")
+        "chosen at :735, pallas_call at :557; probe _i16_supported :576)",
+        tag="5")
     # the int32 kernel on the same config-4 leaf (same inputs, same call)
-    args, kw = rec["forward_shared_i16"]
-    prof, ref, rl, cm, seg, ss, gapO, gapE, quirk = args
+    prof, ref, rl, cm, seg, ss, gapO, gapE, quirk = c4
     B = prof.shape[0]
     row["int32_leaf_ms"] = time_ms(
-        torch, lambda: cuda_sw.forward_shared(*args), 3)
-    row["int32_leaf_bound_ms"] = shared_bound(cuda_sw.OPS_PER_CELL, prof, cm,
-                                              int(ref.numel()))[0]
+        torch, lambda: cuda_sw.forward_shared(*c4), 3)
+    row["int32_leaf_bound_ms"] = shared_bound(
+        "forward_shared", prof, cm, int(ref.numel()), quirk)[0]
     rows.append(row)
     # the suboptimal glue (torch, not a kernel) on this leaf's maxima, with
     # the CLI's mask_len (read_len // 2) and byte-tier window edges
-    _, er, _, mc = cuda_sw.forward_shared(*args, **kw)
+    _, er, _, mc = cuda_sw.forward_shared(*c4, **c4kw)
     ml = (rl // 2).to(torch.int32)
     word = torch.zeros(B, dtype=torch.bool, device=dev)
     sub_ms = time_ms(torch, lambda: scan_sw.second_best_batch(
@@ -543,8 +723,35 @@ def phase_timing(torch, dev, rec, worst, launches, clock_mhz, slice_cols):
     del mc
     log(f"  suboptimal glue (second_best_batch) at B={B} R={ref.numel()}: "
         f"{sub_ms:.3f} ms")
-    # forward_perread at the recorded reverse pass
-    args, kw = rec["forward_perread"]
+
+    # blockmax mode, int32: its largest main-path call (protein goldens),
+    # then on the config-4 streaming leaf beside the base mode, in turns
+    row, _, _ = shared_row(
+        "forward_shared_blockmax", "ssw_tpu_torch/csrc/sw_forward.cu",
+        "ssw_tpu/ops/pallas_sw.py:109 (_forward_kernel, blockmax/lanetrack "
+        "mode :153-213, :278-297, :361-416, int32; pallas_call at :557; "
+        "wrapper forward_shared_ref :702 with blockmax=True)")
+    s4, s4kw, _ = call("forward_shared_i16_blockmax", "5s")
+    bm_kw = {k: v for k, v in s4kw.items() if k != "max_sub"}
+    base_vs_blockmax(row, "forward_shared_blockmax", s4,
+                     lambda: cuda_sw.forward_shared(*s4),
+                     lambda: cuda_sw.forward_shared(*s4, **bm_kw))
+    rows.append(row)
+    # blockmax mode, int16 tier: the 10 Mbp leaf (slice + whole leaf), and
+    # the config-4 streaming leaf beside the base mode, in turns
+    row, _, _ = shared_row(
+        "forward_shared_i16_blockmax", "ssw_tpu_torch/csrc/sw_forward_i16.cu",
+        "ssw_tpu/ops/pallas_sw.py:109 (_forward_kernel, blockmax/lanetrack "
+        "mode, int16 tier (rv, rc) :290-297; pallas_call at :557; wrapper "
+        "forward_shared_ref :702 with blockmax=True)")
+    base_kw = {k: v for k, v in s4kw.items() if k == "max_sub"}
+    base_vs_blockmax(row, "forward_shared_i16_blockmax", s4,
+                     lambda: cuda_sw.forward_shared(*s4, **base_kw),
+                     lambda: cuda_sw.forward_shared(*s4, **s4kw))
+    rows.append(row)
+
+    # forward_perread at the recorded reverse pass of config 4
+    args, kw, _ = call("forward_perread", "5")
     prof, refw, rl, cm, seg, ss, gapO, gapE, quirk = args
     B, n1, L = prof.shape
     W = refw.shape[1]
@@ -570,7 +777,7 @@ def phase_timing(torch, dev, rec, worst, launches, clock_mhz, slice_cols):
     opc = cuda_sw.OPS_PER_CELL_QUIRK if quirk else cuda_sw.OPS_PER_CELL
     nbytes = prof.numel() + 4 * refw.numel() + 3 * cm.numel() + 8 * B + 12 * B
     b_ms, b_by = bound(opc * cells, nbytes)
-    rows.append({
+    row = {
         "name": "forward_perread", "route": "cuda",
         "source": "ssw_tpu_torch/csrc/sw_perread.cu",
         "replaces": "ssw_tpu/ops/pallas_sw.py:819 (_perread_kernel; "
@@ -580,7 +787,20 @@ def phase_timing(torch, dev, rec, worst, launches, clock_mhz, slice_cols):
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None,
         "shape": f"B={B} L={L} W={W} terminate={term is not None}",
-    })
+    }
+    # the streaming scan's first window re-run on the 10 Mbp target
+    # (emit_maxcol, no terminate: every column of the window)
+    args, kw, _ = call("forward_perread", "5b")
+    prof, refw, rl, cm, seg, ss, gapO, gapE, quirk = args
+    row["window_rerun_ms"] = time_ms(
+        torch, lambda: cuda_sw.forward_perread(*args, **kw), 20)
+    row["window_rerun_bound_ms"] = bound(
+        (cuda_sw.OPS_PER_CELL_QUIRK if quirk else cuda_sw.OPS_PER_CELL)
+        * int(cm.sum()) * refw.shape[1],
+        prof.numel() + 8 * refw.numel() + 3 * cm.numel() + 16 * B)[0]
+    row["window_rerun_shape"] = (f"B={prof.shape[0]} L={prof.shape[2]} "
+                                 f"W={refw.shape[1]} emit_maxcol")
+    rows.append(row)
     return rows
 
 
@@ -594,6 +814,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     try:
+        from ssw_tpu_torch import pipeline
         from ssw_tpu_torch.native import build as native_build
         from ssw_tpu_torch.ops import _kernels, cuda_sw
     except ImportError as e:
@@ -603,6 +824,7 @@ def main() -> int:
     dev = torch.device("cuda:0")
     scratch = os.path.join(ROOT, "build", "chip_smoke")
     os.makedirs(scratch, exist_ok=True)
+    t_start = time.perf_counter()
     try:
         # phase 1
         smi = nvidia_smi("name,power.limit")
@@ -627,23 +849,35 @@ def main() -> int:
         log("phase 3 kernels vs plain versions (exact):")
         worst = phase_kernels(torch, dev)
         log(f"phase 3 done in {time.perf_counter() - t0:.1f} s")
-        # phases 4-5 are the main path (configs 1-4): launch counts from 0
+        # phases 4-5b are the main path: launch counts from 0
         cuda_sw.reset_launches()
         restore = record_main_path(cuda_sw)
         try:
             t0 = time.perf_counter()
             log("phase 4 ssw_test main path vs reference-binary goldens:")
-            phase_golden(dev, scratch)
+            tags[0] = "4"
+            phase_golden(dev, scratch, "default")
+            tags[0] = "4s"
+            pipeline.STREAM_SUBOPT = True
+            try:
+                phase_golden(dev, scratch, "streaming")
+            finally:
+                pipeline.STREAM_SUBOPT = None
             log(f"phase 4 done in {time.perf_counter() - t0:.1f} s")
             t0 = time.perf_counter()
             log(f"phase 5 config 4: {CONFIG4_READS} reads vs 1M.fa, "
-                f"-c -s -h -r:")
+                f"-c -s -h -r, full scan and streaming in turns:")
             phase_config4(torch, dev, scratch, CONFIG4_READS, smi)
             log(f"phase 5 done in {time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            log(f"phase 5b 10 Mbp target: {TARGET10M_READS} reads, "
+                f"-c -s -h -r:")
+            phase_target10m(torch, dev, scratch, smi)
+            log(f"phase 5b done in {time.perf_counter() - t0:.1f} s")
         finally:
             rec = restore()
         launches = cuda_sw.launch_counts()
-        log(f"main-path launches (phases 4-5): {json.dumps(launches)}")
+        log(f"main-path launches (phases 4-5b): {json.dumps(launches)}")
         for name, n in launches.items():
             check(n > 0, f"{name} was not launched on the main path")
         t0 = time.perf_counter()
@@ -651,6 +885,7 @@ def main() -> int:
         kernels = phase_timing(torch, dev, rec, worst, launches,
                                float(clock or 1980), SLICE_COLS)
         log(f"phase 6 done in {time.perf_counter() - t0:.1f} s")
+        log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
     except SmokeFailure as e:
         log(f"FAIL: {e}")
         return 1

@@ -29,7 +29,8 @@
 // What bounds it on Hopper: integer ALU work and latency, not bytes.  Per
 // lane-cell and column the recurrence is 7 int32 operations, 11 with the
 // quirk (OPS_PER_CELL in ops/cuda_sw.py counts them); the maxima it writes
-// are 2 or 4 bytes per column per read.  The dependent chain of one column (two shuffles, a
+// are at most 4 bytes per column per read (4 per 256 columns in the forward
+// kernels' blockmax mode).  The dependent chain of one column (two shuffles, a
 // 5-step scan, one reduce) is ~20 shuffle latencies long, so throughput
 // comes from many warps in flight: one warp per read, no block-wide
 // barriers.  Hopper's DPX instructions fuse the max(a + b, c) and
@@ -47,6 +48,7 @@ constexpr int kSegBump = 1 << 21;    // scan_sw.SEG_BUMP
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxRegK = 32;         // largest K kept in registers
 constexpr int kScratchPlanes = 7;    // GlobRow planes per read
+constexpr int kBlockCols = 256;      // columns per block maximum (scan_sw.BM)
 
 // max(a + b, c, 0)
 __device__ __forceinline__ int addmax0(int a, int b, int c) {

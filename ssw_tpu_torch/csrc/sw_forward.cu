@@ -1,9 +1,10 @@
 // forward_shared: the batched SW forward DP of a read batch against one
-// shared target, with per-column maxima and first-strict-max tracking.
+// shared target, with per-column maxima (base mode) or per-256-column block
+// maxima (blockmax mode), and first-strict-max tracking.
 //
 // Replaces the JAX package's Pallas kernel _forward_kernel in its base mode
-// (ssw_tpu/ops/pallas_sw.py, driven by _forward_call and wrapped by
-// forward_shared_ref / forward_shared_ref_gated).  The TPU kernel walks a
+// and in its blockmax/lanetrack mode (ssw_tpu/ops/pallas_sw.py, driven by
+// _forward_call and wrapped by forward_shared_ref).  The TPU kernel walks a
 // sequential grid of 256-column blocks over an (8, 128)-tiled batch in
 // VMEM; here each read is one warp that walks every column itself, so
 // nothing carries between blocks and no block-wide barrier is ever needed
@@ -15,6 +16,23 @@
 // target, so it is served from L1/L2.  The
 // per-column maxima are buffered across the warp's lanes and written as one
 // coalesced 64-byte store per 32 columns, clipped to [0, 32767] (int16).
+//
+// Blockmax mode (template flag BlockMax) is the streaming suboptimal scan's
+// input: no (B, R) buffer, but one int32 per 256 columns, the running max of
+// the column maxima over the columns < valid_len (>= 0, not clipped: the
+// composition in ops/subopt.py clips).  score/end_ref/end_read are those of
+// the base mode on the same inputs.  The TPU's lanetrack trick (per-lane
+// (value, column) trackers reduced once per block) exists to drop the
+// per-column cross-lane reduce; here that reduce is one __reduce_max_sync
+// in a chain of ~20 shuffles, and the mode keeps it: the best-column
+// snapshot and end positions stay exactly the base mode's.
+//
+// The quirk is a template flag too.  As a runtime bool it left nvcc to
+// choose between a loop split on it and the quirk's shuffles behind
+// per-step branches, and small edits flipped the choice.  On the config-4
+// leaf (ssw_tpu_torch/leaf_timing.py; NVIDIA H100 80GB HBM3, 700 W) the
+// template takes the base mode from 311 to 287 ms with the quirk off and
+// from 388 to 309 ms with it on.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC -o libsw_forward.so sw_forward.cu
@@ -34,18 +52,20 @@ struct FwdArgs {
   int32_t* score;           // (B,)
   int32_t* end_ref;         // (B,)
   int32_t* end_read;        // (B,)
-  int16_t* maxcol;          // (B, R)
+  int16_t* maxcol;          // (B, R), base mode
+  int32_t* blockmax;        // (B, ceil(R/256)), blockmax mode
+  int valid_len;            // blockmax: columns < valid_len feed the maxima
   int32_t* scratch;         // (B, 7, L) for GlobRow, else null
 };
 
-template <int KT>
+template <int KT, bool BlockMax, bool Quirk>
 __global__ void sw_forward_kernel(const FwdArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int wpb = blockDim.x >> 5, w = threadIdx.x >> 5, t = threadIdx.x & 31;
   const int b = blockIdx.x * wpb + w;
   if (b >= a.B) return;  // whole warps only; no block barriers below
   const int L = a.L, K = KT > 0 ? KT : a.L / 32;
-  const bool quirk = a.quirk != 0;
+  constexpr bool quirk = Quirk;
   const size_t row = size_t(b) * L;
   using Row = typename sw::RowSel<KT>::type;
   Row r;
@@ -59,7 +79,10 @@ __global__ void sw_forward_kernel(const FwdArgs a) {
   int gmax = 0, end_ref = -1;
   int code_v = 0;
   int16_t mc_v = 0;
-  int16_t* mc_row = a.maxcol + size_t(b) * a.R;
+  int bm_run = 0;  // blockmax: running max of the current 256-column block
+  const int nblk = (a.R + sw::kBlockCols - 1) / sw::kBlockCols;
+  int16_t* mc_row = BlockMax ? nullptr : a.maxcol + size_t(b) * a.R;
+  int32_t* bm_row = BlockMax ? a.blockmax + size_t(b) * nblk : nullptr;
   for (int col = 0; col < a.R; ++col) {
     const int lane = col & 31;
     if (lane == 0) {
@@ -74,10 +97,19 @@ __global__ void sw_forward_kernel(const FwdArgs a) {
       end_ref = col;
       sw::save_best<KT>(r, K);
     }
-    if (t == lane) mc_v = int16_t(min(colmax, 32767));
-    if (lane == 31 || col == a.R - 1) {
-      const int cc = (col & ~31) + t;
-      if (cc <= col) mc_row[cc] = mc_v;
+    if constexpr (BlockMax) {
+      if (col < a.valid_len) bm_run = max(bm_run, colmax);
+      if ((col & (sw::kBlockCols - 1)) == sw::kBlockCols - 1 ||
+          col == a.R - 1) {
+        if (t == 0) bm_row[col / sw::kBlockCols] = bm_run;
+        bm_run = 0;
+      }
+    } else {
+      if (t == lane) mc_v = int16_t(min(colmax, 32767));
+      if (lane == 31 || col == a.R - 1) {
+        const int cc = (col & ~31) + t;
+        if (cc <= col) mc_row[cc] = mc_v;
+      }
     }
   }
   const int rl = a.read_len[b];
@@ -89,20 +121,30 @@ __global__ void sw_forward_kernel(const FwdArgs a) {
   }
 }
 
-template <int KT>
-int launch(const FwdArgs& a, cudaStream_t stream) {
+template <int KT, bool BlockMax, bool Quirk>
+int launch_mode(const FwdArgs& a, cudaStream_t stream) {
   int wpb;
   size_t smem;
-  sw::launch_shape<KT>(a.n1, a.L, a.quirk != 0, &wpb, &smem);
+  sw::launch_shape<KT>(a.n1, a.L, Quirk, &wpb, &smem);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        sw_forward_kernel<KT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        int(smem));
+        sw_forward_kernel<KT, BlockMax, Quirk>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
     if (e != cudaSuccess) return int(e);
   }
   const int grid = (a.B + wpb - 1) / wpb;
-  sw_forward_kernel<KT><<<grid, wpb * 32, smem, stream>>>(a);
+  sw_forward_kernel<KT, BlockMax, Quirk><<<grid, wpb * 32, smem, stream>>>(
+      a);
   return int(cudaGetLastError());
+}
+
+template <int KT>
+int launch(const FwdArgs& a, cudaStream_t stream) {
+  if (a.blockmax)
+    return a.quirk ? launch_mode<KT, true, true>(a, stream)
+                   : launch_mode<KT, true, false>(a, stream);
+  return a.quirk ? launch_mode<KT, false, true>(a, stream)
+                 : launch_mode<KT, false, false>(a, stream);
 }
 
 }  // namespace
@@ -114,13 +156,15 @@ int sw_forward_scratch_per_read(int L) {
   return sw::reg_k(L / 32) ? 0 : sw::kScratchPlanes * L;
 }
 
-// Returns the cudaError_t of the launch (0 on success).
+// Returns the cudaError_t of the launch (0 on success).  Exactly one of
+// maxcol (base mode) and blockmax (blockmax mode, with valid_len) is set.
 int sw_forward_shared(const void* prof, const void* ref, const void* read_len,
                       const void* col_mask, const void* seg_id,
                       const void* seg_start, int B, int n1, int L, int R,
                       int gapO, int gapE, int quirk, void* score,
                       void* end_ref, void* end_read, void* maxcol,
-                      void* scratch, void* stream) {
+                      void* blockmax, int valid_len, void* scratch,
+                      void* stream) {
   if (B <= 0) return 0;
   FwdArgs a;
   a.prof = static_cast<const int8_t*>(prof);
@@ -140,6 +184,8 @@ int sw_forward_shared(const void* prof, const void* ref, const void* read_len,
   a.end_ref = static_cast<int32_t*>(end_ref);
   a.end_read = static_cast<int32_t*>(end_read);
   a.maxcol = static_cast<int16_t*>(maxcol);
+  a.blockmax = static_cast<int32_t*>(blockmax);
+  a.valid_len = valid_len;
   a.scratch = static_cast<int32_t*>(scratch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   SW_DISPATCH_K(L / 32, launch, a, s)

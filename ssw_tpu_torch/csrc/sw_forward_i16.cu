@@ -27,6 +27,13 @@
 // leaf of B reads fills B/2 warps, so it runs half the warps of the int32
 // kernel on the same chain length per column.
 //
+// Blockmax mode (template flag BlockMax; the int16 tier of the TPU kernel's
+// blockmax/lanetrack mode) replaces the per-column int16 stores with a packed
+// running max of both reads' column maxima over the columns < valid_len, and
+// one int32 store per read per 256 columns, as in sw_forward.cu.  The two
+// halves keep separate block maxima; an odd B's empty high half stores
+// nothing.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC -o libsw_forward_i16.so sw_forward_i16.cu
 
@@ -62,7 +69,9 @@ struct I16Args {
   int32_t* score;           // (B,)
   int32_t* end_ref;         // (B,)
   int32_t* end_read;        // (B,)
-  int16_t* maxcol;          // (B, R)
+  int16_t* maxcol;          // (B, R), base mode
+  int32_t* blockmax;        // (B, ceil(R/256)), blockmax mode
+  int valid_len;            // blockmax: columns < valid_len feed the maxima
   unsigned* scratch;        // (ceil(B/2), 4, L) for PGlobRow, else null
 };
 
@@ -195,7 +204,7 @@ __device__ __forceinline__ int end_read_i16(Row& r, int K, int t, int L,
   return cand == L ? rl - 1 : cand;
 }
 
-template <int KT>
+template <int KT, bool BlockMax>
 __global__ void sw_forward_i16_kernel(const I16Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int wpb = blockDim.x >> 5, w = threadIdx.x >> 5, t = threadIdx.x & 31;
@@ -222,8 +231,11 @@ __global__ void sw_forward_i16_kernel(const I16Args a) {
 
   int gmax_a = 0, gmax_b = 0, er_a = -1, er_b = -1, code_v = 0;
   unsigned mc_v = 0u;
-  int16_t* mca = a.maxcol + size_t(ba) * a.R;
-  int16_t* mcb = has_b ? mca + a.R : nullptr;
+  unsigned bm_v = 0u;  // blockmax: packed running max of the current block
+  const int nblk = (a.R + sw::kBlockCols - 1) / sw::kBlockCols;
+  int16_t* mca = BlockMax ? nullptr : a.maxcol + size_t(ba) * a.R;
+  int16_t* mcb = has_b && !BlockMax ? mca + a.R : nullptr;
+  int32_t* bma = BlockMax ? a.blockmax + size_t(ba) * nblk : nullptr;
   for (int col = 0; col < a.R; ++col) {
     const int lane = col & 31;
     if (lane == 0) {
@@ -242,12 +254,23 @@ __global__ void sw_forward_i16_kernel(const I16Args a) {
       for (int k = 0; k < KK; ++k) r.HB(k) = (r.H(k) & m) | (r.HB(k) & ~m);
     }
     // colmax < 2^14 inside the i16_exact bound: no clip to 32767 needed
-    if (t == lane) mc_v = cm;
-    if (lane == 31 || col == a.R - 1) {
-      const int cc = (col & ~31) + t;
-      if (cc <= col) {
-        mca[cc] = int16_t(lo16(mc_v));
-        if (mcb) mcb[cc] = int16_t(hi16(mc_v));
+    if constexpr (BlockMax) {
+      if (col < a.valid_len) bm_v = __vmaxs2(bm_v, cm);  // both >= 0
+      if ((col & (sw::kBlockCols - 1)) == sw::kBlockCols - 1 ||
+          col == a.R - 1) {
+        const int blk = col / sw::kBlockCols;
+        if (t == 0) bma[blk] = lo16(bm_v);
+        if (t == 1 && has_b) bma[nblk + blk] = hi16(bm_v);
+        bm_v = 0u;
+      }
+    } else {
+      if (t == lane) mc_v = cm;
+      if (lane == 31 || col == a.R - 1) {
+        const int cc = (col & ~31) + t;
+        if (cc <= col) {
+          mca[cc] = int16_t(lo16(mc_v));
+          if (mcb) mcb[cc] = int16_t(hi16(mc_v));
+        }
       }
     }
   }
@@ -267,22 +290,28 @@ __global__ void sw_forward_i16_kernel(const I16Args a) {
   }
 }
 
-template <int KT>
-int launch(const I16Args& a, cudaStream_t stream) {
+template <int KT, bool BlockMax>
+int launch_mode(const I16Args& a, cudaStream_t stream) {
   const size_t per_warp = KT > 0 ? size_t(a.n1) * a.L * 4 : 0;
   int wpb = 4;
   while (wpb > 1 && wpb * per_warp > 48 * 1024) wpb >>= 1;
   const size_t smem = wpb * per_warp;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        sw_forward_i16_kernel<KT>,
+        sw_forward_i16_kernel<KT, BlockMax>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
     if (e != cudaSuccess) return int(e);
   }
   const int pairs = (a.B + 1) / 2;
   const int grid = (pairs + wpb - 1) / wpb;
-  sw_forward_i16_kernel<KT><<<grid, wpb * 32, smem, stream>>>(a);
+  sw_forward_i16_kernel<KT, BlockMax><<<grid, wpb * 32, smem, stream>>>(a);
   return int(cudaGetLastError());
+}
+
+template <int KT>
+int launch(const I16Args& a, cudaStream_t stream) {
+  return a.blockmax ? launch_mode<KT, true>(a, stream)
+                    : launch_mode<KT, false>(a, stream);
 }
 
 }  // namespace
@@ -294,12 +323,14 @@ int sw_forward_i16_scratch_per_pair(int L) {
   return sw::reg_k(L / 32) ? 0 : kPlanes * L;
 }
 
-// Returns the cudaError_t of the launch (0 on success).
+// Returns the cudaError_t of the launch (0 on success).  Exactly one of
+// maxcol (base mode) and blockmax (blockmax mode, with valid_len) is set.
 int sw_forward_shared_i16(const void* prof, const void* ref,
                           const void* read_len, const void* col_mask, int B,
                           int n1, int L, int R, int gapO, int gapE,
                           void* score, void* end_ref, void* end_read,
-                          void* maxcol, void* scratch, void* stream) {
+                          void* maxcol, void* blockmax, int valid_len,
+                          void* scratch, void* stream) {
   if (B <= 0) return 0;
   I16Args a;
   a.prof = static_cast<const int8_t*>(prof);
@@ -316,6 +347,8 @@ int sw_forward_shared_i16(const void* prof, const void* ref,
   a.end_ref = static_cast<int32_t*>(end_ref);
   a.end_read = static_cast<int32_t*>(end_read);
   a.maxcol = static_cast<int16_t*>(maxcol);
+  a.blockmax = static_cast<int32_t*>(blockmax);
+  a.valid_len = valid_len;
   a.scratch = static_cast<unsigned*>(scratch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   SW_DISPATCH_K(L / 32, launch, a, s)

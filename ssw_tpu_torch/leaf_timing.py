@@ -1,0 +1,91 @@
+"""Time the forward kernels on the config-4 leaf, in one or more trees, in
+turns on one card.
+
+    python3 -m ssw_tpu_torch.leaf_timing PARENT . . PARENT
+
+The leaf: 1024 reads of 100 bp sampled (seed 1) from tests/data/1M.fa, L 128,
+the target padded to 2^20 columns, DNA m2/x2/o3/e1.  For each tree given
+(a checkout, e.g. a parent commit unpacked with `git archive`), in its own
+process and in the order given, prints one JSON line of CUDA-event times in
+ms: the int32 kernel with the quirk off and on, and the int16 tier, in base
+mode and, where the tree has it, in blockmax mode.  Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import inspect
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+
+
+def _time_tree(tree: str) -> dict:
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+    from ssw_tpu_torch.ops import _kernels, common, cuda_sw
+
+    _kernels.build()
+    with open(os.path.join(tree, "tests", "data", "1M.fa"), "rb") as f:
+        seq = b"".join(ln.strip() for ln in f if not ln.startswith(b">"))
+    table = np.full(256, 4, np.int8)
+    for i, c in enumerate(b"ACGT"):
+        table[c] = i
+    codes = table[np.frombuffer(seq, np.uint8)]
+    ref = np.full(1 << 20, 4, np.int32)
+    ref[:len(codes)] = codes
+    rng = np.random.default_rng(1)
+    reads = [codes[s:s + 100].copy()
+             for s in rng.integers(20000, len(codes) - 100, 1024)]
+    rl = np.full(1024, 100, np.int32)
+    mat = np.full((5, 5), -2, np.int8)
+    np.fill_diagonal(mat, 2)
+    mat[4, :] = mat[:, 4] = 0
+    prof = common.build_profile(common.pad_reads(reads, 128, 4), rl,
+                                common.extend_matrix(mat))
+    geo = common.batch_geometry(rl, 128, word=False)
+    args = tuple(torch.as_tensor(np.ascontiguousarray(a)).cuda() for a in (
+        prof, ref, rl, geo.col_mask, geo.seg_id, geo.seg_start)) + (3, 1)
+
+    def ms(quirk, kw, reps=3):
+        def run():
+            cuda_sw.forward_shared(*args, quirk, **kw)
+        run()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            run()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b) / reps
+
+    res = {"tree": tree, "card": torch.cuda.get_device_name(0),
+           "int32_ms": ms(False, {}), "int32_quirk_ms": ms(True, {}),
+           "i16_ms": ms(False, {"max_sub": 2})}
+    if "blockmax" in inspect.signature(cuda_sw.forward_shared).parameters:
+        bm = {"blockmax": True, "valid_len": len(codes)}
+        res.update(int32_bm_ms=ms(False, bm), int32_quirk_bm_ms=ms(True, bm),
+                   i16_bm_ms=ms(False, dict(bm, max_sub=2)))
+    return res
+
+
+def main(argv: list[str]) -> int:
+    if argv[:1] == ["--one"]:
+        print(json.dumps(_time_tree(argv[1])), flush=True)
+        return 0
+    # each tree in a fresh process whose import path starts at that tree
+    # (run with -c: a script's own directory would lead the path)
+    code = f"exec(open({os.path.abspath(__file__)!r}).read())"
+    for tree in argv or ["."]:
+        r = subprocess.run([sys.executable, "-c", code, "--one", tree])
+        if r.returncode:
+            return r.returncode
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

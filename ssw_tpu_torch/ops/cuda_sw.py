@@ -1,5 +1,8 @@
 """Wrappers of the hand-written CUDA DP kernels (csrc/sw_forward.cu,
-csrc/sw_forward_i16.cu, csrc/sw_perread.cu).
+csrc/sw_forward_i16.cu, csrc/sw_perread.cu).  The two forward kernels have a
+base mode (per-column maxima) and a blockmax mode (per-256-column maxima,
+the streaming suboptimal scan's input); each mode of each kernel has its own
+launch count.
 
 Each wrapper takes the tensors of its plain twin in ops/scan_sw.py.  A
 tensor on the CPU goes to the plain version; a CUDA tensor goes to the
@@ -28,6 +31,11 @@ from ssw_tpu_torch.ops import _kernels, common, scan_sw
 OPS_PER_CELL = 7
 OPS_PER_CELL_QUIRK = 11
 OPS_PER_CELL_I16 = OPS_PER_CELL / 2
+# blockmax mode: the same per lane-cell, plus the block's running max of the
+# column maxima, once per read and column (one packed op for the two reads
+# of an int16 warp)
+OPS_PER_COLUMN_BLOCKMAX = 1
+OPS_PER_COLUMN_BLOCKMAX_I16 = 0.5
 
 # the int16 tier is exact while every cell and intermediate stays below
 # this bound (the JAX package's pallas_sw.I16_HEADROOM)
@@ -35,6 +43,7 @@ I16_HEADROOM = 2 ** 14
 
 # kernel launches per wrapper, counted right after each successful launch
 LAUNCHES = {"forward_shared": 0, "forward_shared_i16": 0,
+            "forward_shared_blockmax": 0, "forward_shared_i16_blockmax": 0,
             "forward_perread": 0}
 
 
@@ -92,9 +101,9 @@ def _ptr(x):
 
 
 def _launch_shared(profile, ref, read_len, col_mask, seg_id, seg_start,
-                   gapO, gapE, quirk, i16):
-    """One launch of the int32 kernel, or of the int16 tier (quirk off);
-    not counted."""
+                   gapO, gapE, quirk, i16, blockmax=False, valid_len=None):
+    """One launch of the int32 kernel, or of the int16 tier (quirk off), in
+    base or blockmax mode; not counted."""
     B, n1, L, dev = _geometry_checks(profile, read_len, col_mask, seg_id,
                                      seg_start)
     R = int(ref.shape[0])
@@ -102,9 +111,16 @@ def _launch_shared(profile, ref, read_len, col_mask, seg_id, seg_start,
     score = torch.empty(B, dtype=torch.int32, device=dev)
     end_ref = torch.empty(B, dtype=torch.int32, device=dev)
     end_read = torch.empty(B, dtype=torch.int32, device=dev)
-    maxcol = torch.empty((B, R), dtype=torch.int16, device=dev)
+    if blockmax:
+        vl = R if valid_len is None else min(int(valid_len), R)
+        maxcol = torch.empty((B, (R + scan_sw.BM - 1) // scan_sw.BM),
+                             dtype=torch.int32, device=dev)
+        mode = (None, maxcol.data_ptr(), vl)
+    else:
+        maxcol = torch.empty((B, R), dtype=torch.int16, device=dev)
+        mode = (maxcol.data_ptr(), None, 0)
     outs = (score.data_ptr(), end_ref.data_ptr(), end_read.data_ptr(),
-            maxcol.data_ptr())
+            *mode)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if i16:
@@ -124,7 +140,7 @@ def _launch_shared(profile, ref, read_len, col_mask, seg_id, seg_start,
                 col_mask.data_ptr(), seg_id.data_ptr(), seg_start.data_ptr(),
                 B, n1, L, R, int(gapO), int(gapE), int(bool(quirk)), *outs,
                 _ptr(scratch), stream)
-    _raise_on(lib, rc, "forward_shared_i16" if i16 else "forward_shared")
+    _raise_on(lib, rc, shared_kernel_name(i16, blockmax))
     return score, end_ref, end_read, maxcol
 
 
@@ -160,26 +176,40 @@ def _i16_parity(dev):
     _I16_CHECKED.add(key)
 
 
+def shared_kernel_name(i16: bool, blockmax: bool) -> str:
+    """The LAUNCHES key of a forward_shared launch."""
+    return ("forward_shared" + ("_i16" if i16 else "")
+            + ("_blockmax" if blockmax else ""))
+
+
 def forward_shared(profile, ref, read_len, col_mask, seg_id, seg_start,
                    gapO: int, gapE: int, quirk: bool = True,
-                   max_sub: int | None = None):
+                   max_sub: int | None = None, blockmax: bool = False,
+                   valid_len: int | None = None):
     """Batched forward DP against one shared target.  Returns (score,
     end_ref, end_read (B,) int32, maxcol (B, R) int16 in [0, 32767]).
 
     profile (B, n+1, L) int8, ref (R,) int32, read_len (B,) int32,
     col_mask/seg_start (B, L) bool, seg_id (B, L) int8.  max_sub =
     max|substitution score| runs the int16 tier when i16_exact allows it
-    (counted as forward_shared_i16); the results are the same."""
+    (counted as forward_shared_i16); the results are the same.
+
+    blockmax: the last output is (B, ceil(R/256)) int32 per-block maxima
+    over the columns < valid_len (default R), >= 0 and not clamped, and no
+    (B, R) buffer is allocated; score/end_ref/end_read are unchanged
+    (counted as forward_shared[_i16]_blockmax)."""
     if profile.device.type == "cpu":
         return scan_sw.forward_shared_ref(profile, ref, read_len, col_mask,
                                           seg_id, seg_start, gapO, gapE,
-                                          quirk)
+                                          quirk, blockmax=blockmax,
+                                          valid_len=valid_len)
     i16 = i16_exact(int(profile.shape[2]), gapO, gapE, max_sub, quirk)
     if i16:
         _i16_parity(profile.device)
     out = _launch_shared(profile, ref, read_len, col_mask, seg_id,
-                         seg_start, gapO, gapE, quirk, i16)
-    LAUNCHES["forward_shared_i16" if i16 else "forward_shared"] += 1
+                         seg_start, gapO, gapE, quirk, i16, blockmax,
+                         valid_len)
+    LAUNCHES[shared_kernel_name(i16, blockmax)] += 1
     return out
 
 

@@ -12,7 +12,8 @@ exact for gapO > gapE).  All DP arithmetic is int32.
 Shapes:
   profile   (B, n+1, L) int8/int32  per-read query profile incl. virtual pad row
   ref       (R,) int32              shared target, or refw (B, W) per-read windows
-  outputs   scores/ends (B,) int32, max_column (B, R) int16 in [0, 32767]
+  outputs   scores/ends (B,) int32, max_column (B, R) int16 in [0, 32767],
+            or per-block maxima (B, ceil(R/BM)) int32 in blockmax mode
 """
 
 from __future__ import annotations
@@ -92,11 +93,18 @@ def _finalize(state, read_len, L):
 
 
 def forward_shared_ref(profile, ref, read_len, col_mask, seg_id, seg_start,
-                       gapO: int, gapE: int, quirk: bool = True):
+                       gapO: int, gapE: int, quirk: bool = True,
+                       blockmax: bool = False, valid_len: int | None = None):
     """Forward pass of a read batch against one shared target.
 
     Returns (score (B,), end_ref (B,), end_read (B,), max_column (B, R)
-    int16 clamped at the reference word kernel's saturation, 32767)."""
+    int16 clamped at the reference word kernel's saturation, 32767).
+
+    blockmax: instead of max_column, blockmax_reduce of the unclamped
+    column maxima over the columns i < valid_len (default R): (B,
+    ceil(R/BM)) int32, zero-floored and NOT clamped (the streaming
+    composition clamps).  The other outputs are unchanged: every column
+    still feeds the best hit."""
     B, _, L = profile.shape
     dev = profile.device
     prof_t = profile.to(_I32).permute(1, 0, 2).contiguous()  # (n+1, B, L)
@@ -105,16 +113,19 @@ def forward_shared_ref(profile, ref, read_len, col_mask, seg_id, seg_start,
     R = int(ref.shape[0])
     codes = ref.tolist()
     state = _init_state(B, L, dev)
-    mc = torch.empty((R, B), dtype=torch.int16, device=dev)
+    mc = torch.empty((R, B), dtype=_I32, device=dev)
     for j in range(R):
-        state, colmax = _column_update(prof_t[codes[j]], state, gapO, gapE,
-                                       decay, seg_bias, seg_reset, col_mask,
-                                       j, quirk)
-        # clamp at the reference word kernel's saturation point before the
-        # narrowing (ref: _mm_adds_epi16 saturates at 32767)
-        mc[j] = colmax.clamp_max(32767)
+        state, mc[j] = _column_update(prof_t[codes[j]], state, gapO, gapE,
+                                      decay, seg_bias, seg_reset, col_mask,
+                                      j, quirk)
     score, end_ref, end_read = _finalize(state, read_len, L)
-    return score, end_ref, end_read, mc.t().contiguous()
+    if blockmax:
+        return score, end_ref, end_read, blockmax_reduce(
+            mc.t(), R if valid_len is None else int(valid_len))
+    # clamp at the reference word kernel's saturation point before the
+    # narrowing (ref: _mm_adds_epi16 saturates at 32767)
+    return (score, end_ref, end_read,
+            mc.clamp_max(32767).to(torch.int16).t().contiguous())
 
 
 def forward_perread_ref(profile, refw, read_len, col_mask, seg_id, seg_start,

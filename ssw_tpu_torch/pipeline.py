@@ -7,7 +7,10 @@ against one target:
   1. forward pass, byte-tier geometry (all reads at once, one kernel launch)
   2. word-tier rerun of the subset whose score overflows the byte range
      (score + bias >= 255, ref: src/ssw.c:883-886)
-  3. suboptimal-score scan outside the maskLen window (tier-aware edges)
+  3. suboptimal-score scan outside the maskLen window (tier-aware edges):
+     over the (B, R) per-column maxima, or, when streaming (see
+     _use_streaming), from per-256-column block maxima and two bounded
+     per-read window re-runs (ops/subopt.py), with no (B, R) buffer
   4. reverse pass on reversed read prefixes vs per-read reference windows to
      locate begin positions (ref: src/ssw.c:918-930); the window length is a
      provable bound on the alignment's reference span, so the batched
@@ -32,7 +35,7 @@ import torch
 
 from ssw_tpu_torch.core import oracle
 from ssw_tpu_torch.core.encoding import matrix_bias
-from ssw_tpu_torch.ops import common, cuda_sw, scan_sw
+from ssw_tpu_torch.ops import common, cuda_sw, scan_sw, subopt
 
 # -- observability hook (profiling.py) --------------------------------------
 # an active GcupsCounter collects per-phase seconds + useful-cell counts
@@ -120,14 +123,62 @@ MAXCOL_HARD_CAP = 3 << 30  # bound for one int16 maxcol buffer
 OPT_LANES = 32768
 
 
+def _restart_margin(L: int, mat: np.ndarray, gapO: int, gapE: int) -> int:
+    """Columns of warm-up after which a zero-state DP restart is exact (see
+    ops/subopt.py): a dependency chain either moves a lane up (at most L
+    lane steps, including the zero-cost diagonal rides through padded
+    rows/columns) or pays at least min(gapO, gapE) from a value bounded by
+    L * max|mat|.  _window_len already bounds the pay-down span; add the
+    full lane budget plus slack."""
+    return _window_len(L, 1 << 30, mat, gapO, gapE) + L + 256
+
+
+# Forces the suboptimal scan's path: None applies _use_streaming's rule,
+# True/False stream always/never (the tests and chip_smoke.py set it).  The
+# counterpart of the JAX package's SSW_TPU_STREAM_SUBOPT variable.
+STREAM_SUBOPT: bool | None = None
+
+# Target columns from which the port streams even when the (B, R) maxima
+# buffer would fit.  From Rp = 2^20 on, the full scan's leaves are no larger
+# than the streaming split's 1024 rows (2 GB of int16 maxima), so both run
+# the same forward launches and streaming saves the (B, R) stores and the
+# glue: config 4 (Rp = 1,048,576, 8192 reads, chip_smoke.py phase 5, runs
+# in turns) took 5.370 and 5.591 s streaming against 5.973 and 5.890 s with
+# the full scan on an NVIDIA H100 80GB HBM3 at 700 W, same SAM (PERF.md).
+# Below it the full scan's leaves hold more rows (up to the CLI's 2048-read
+# batch) than streaming's 1024, and the forward kernel is latency bound, so
+# streaming would add forward launches there (not measured on the card).
+# The JAX package's 524,288 was fitted on another chip.
+STREAM_MIN_COLS = 1 << 20
+
+
 def _sweet_rows(L: int) -> int:
     """Batch rows that fill OPT_LANES for bucket L."""
     return max(64, (OPT_LANES // max(L, 1)) // 64 * 64)
 
 
-def _rows_per_leaf(Rp_est: int, L_est: int) -> int:
-    """Reads per leaf: cap the (B, Rp) int16 maxima buffer at MAXCOL_BUDGET,
-    but keep OPT_LANES rows while one buffer stays under MAXCOL_HARD_CAP."""
+def _use_streaming(Rp_est: int, L_est: int) -> bool:
+    """Stream the suboptimal scan (per-block maxima + bounded window
+    re-runs) when holding (B, Rp) per-column maxima would force the leaf
+    below its OPT_LANES rows (the JAX package's memory rule: chromosome-scale
+    targets), or from STREAM_MIN_COLS target columns on.  Outputs do not
+    depend on the choice; STREAM_SUBOPT forces either path."""
+    if STREAM_SUBOPT is not None:
+        return bool(STREAM_SUBOPT)
+    if Rp_est >= STREAM_MIN_COLS:
+        return True
+    rows_cap = max(64, int(MAXCOL_HARD_CAP // (Rp_est * 2)) // 64 * 64)
+    return rows_cap < _sweet_rows(L_est)
+
+
+def _rows_per_leaf(Rp_est: int, L_est: int, streaming: bool) -> int:
+    """Reads per leaf.  Non-streaming: cap the (B, Rp) int16 maxima buffer
+    at MAXCOL_BUDGET, but keep OPT_LANES rows while one buffer stays under
+    MAXCOL_HARD_CAP.  Streaming has no such buffer: max(1024, OPT_LANES
+    rows), the JAX package's split (it decides the order of stderr
+    warnings, which the reverse pass emits per leaf and tier)."""
+    if streaming:
+        return max(1024, _sweet_rows(L_est))
     b_mem = max(64, int(MAXCOL_BUDGET // (Rp_est * 2)) // 64 * 64)
     rows_cap = max(64, int(MAXCOL_HARD_CAP // (Rp_est * 2)) // 64 * 64)
     return max(b_mem, min(_sweet_rows(L_est), rows_cap))
@@ -308,7 +359,9 @@ def align_batch(req: BatchRequest, device=None) -> list[oracle.AlignResult]:
         return results
 
     # cap the per-column-maxima footprint (see _rows_per_leaf)
-    b_mem = _rows_per_leaf(common.bucket_size(len(req.ref), 256), L_est)
+    Rp_est = common.bucket_size(len(req.ref), 256)
+    streaming = _use_streaming(Rp_est, L_est)
+    b_mem = _rows_per_leaf(Rp_est, L_est, streaming)
     if B > b_mem:
         results = []
         for lo in range(0, B, b_mem):
@@ -316,7 +369,7 @@ def align_batch(req: BatchRequest, device=None) -> list[oracle.AlignResult]:
             results.extend(align_batch(sub, dev))
         return results
 
-    st = _leaf_start(req, dev)
+    st = _leaf_start(req, dev, streaming)
     if isinstance(st, list):  # quirk value-range fallback
         return st
     _leaf_mid(st)
@@ -338,8 +391,8 @@ def align_batch_launch(req: BatchRequest, device=None) -> _Pending:
         return _Pending(results=align_batch(req, dev))
     pend = _Pending()
     pend.B = len(req.reads)
-    for idx, leaf_req in plan:
-        st = _leaf_start(leaf_req, dev)
+    for idx, leaf_req, streaming in plan:
+        st = _leaf_start(leaf_req, dev, streaming)
         assert not isinstance(st, list)  # planner pre-checked the guards
         pend.parts.append((idx, st))
     return pend
@@ -387,9 +440,9 @@ def align_batch_finish(pend: _Pending, detail=None) -> list:
 
 
 def _plan_async(req: BatchRequest):
-    """Split req into async-eligible leaves [(global indices, leaf_req)],
-    mirroring align_batch's group/memory splitting exactly; None when any
-    leaf would take a synchronous path."""
+    """Split req into async-eligible leaves [(global indices, leaf_req,
+    streaming)], mirroring align_batch's group/memory splitting exactly;
+    None when any leaf would take a synchronous path."""
     B = len(req.reads)
     if B == 0:
         return []
@@ -407,19 +460,21 @@ def _plan_async(req: BatchRequest):
         if quirk and (L_est * (max_sub + req.gapE) + req.gapO
                       >= int(scan_sw.SEG_BUMP)):
             return None  # oracle fallback leaf
-        b_mem = _rows_per_leaf(Rp_est, L_est)
+        streaming = _use_streaming(Rp_est, L_est)
+        b_mem = _rows_per_leaf(Rp_est, L_est, streaming)
         for lo in range(0, len(idx), b_mem):
             part = idx[lo:lo + b_mem]
-            out.append((part, _subset_req(req, part, mask_all)))
+            out.append((part, _subset_req(req, part, mask_all), streaming))
     return out
 
 
 class _LeafState:
     """Mutable bag for one leaf batch's launch -> mid -> finish flow."""
     __slots__ = (
-        "req", "dev", "B", "n", "bias", "ref_len", "mask_len", "read_len",
-        "L", "mat_ext_d", "reads_d", "rl_d", "quirk", "max_sub",
-        "word_tier", "might", "ref_codes", "fwd_d", "sub_d",
+        "req", "dev", "streaming", "B", "n", "bias", "ref_len", "mask_len",
+        "read_len", "L", "mat_ext_d", "reads_d", "rl_d", "quirk", "max_sub",
+        "word_tier", "might", "ref_codes", "ref_ext", "D", "Wb", "Wb2",
+        "fwd_d", "sub_d", "bm_d",
         "score", "end_ref", "end_read", "score2", "ref_end2", "word",
         "null_mask", "fin")
 
@@ -428,17 +483,19 @@ class _LeafState:
 
 
 def _forward(st: _LeafState, reads_d, rl_d, col_word, seg_word: bool):
-    """Profile + geometry + the forward kernel for rows reads_d."""
+    """Profile + geometry + the forward kernel for rows reads_d: per-column
+    maxima, or per-block maxima over the target's columns when streaming."""
     profile, cm_d, seg_d, ss_d = _prep_device(
         reads_d, rl_d, st.mat_ext_d, _to(st.dev, col_word), st.L, seg_word)
     return cuda_sw.forward_shared(profile, st.ref_codes, rl_d, cm_d, seg_d,
                                   ss_d, st.req.gapO, st.req.gapE, st.quirk,
-                                  max_sub=st.max_sub)
+                                  max_sub=st.max_sub, blockmax=st.streaming,
+                                  valid_len=st.ref_len)
 
 
-def _leaf_start(req: BatchRequest, dev):
-    """Queue the leaf's device work: upload, forward pass, and the
-    speculative suboptimal scan.  No host<->device syncs.
+def _leaf_start(req: BatchRequest, dev, streaming: bool):
+    """Queue the leaf's device work: upload, forward pass, and (when not
+    streaming) the speculative suboptimal scan.  No host<->device syncs.
 
     The suboptimal scan launches before the byte-overflow tier decision is
     known by using the speculative col_word tiers for its window-edge
@@ -450,7 +507,7 @@ def _leaf_start(req: BatchRequest, dev):
     Returns a results list instead when the quirk value-range guard routes
     to the oracle fallback."""
     st = _LeafState()
-    st.req, st.dev = req, dev
+    st.req, st.dev, st.streaming = req, dev, streaming
     B = st.B = len(req.reads)
     n = st.n = req.mat.shape[0]
     st.bias = matrix_bias(req.mat)
@@ -471,8 +528,19 @@ def _leaf_start(req: BatchRequest, dev):
     # pad the target to a coarse bucket with the virtual letter: padded
     # columns carry values diagonally at zero cost but can never strictly
     # exceed the running max, and are masked out of the suboptimal scan
-    st.ref_codes = _device_ref(req.ref, n, common.bucket_size(ref_len, 256),
-                               dev)
+    Rp = common.bucket_size(ref_len, 256)
+    if streaming:
+        # window sizes of the streaming suboptimal scan's per-read re-runs;
+        # the device target gets Wb extra pad so window slices never clamp
+        st.D = _restart_margin(L, req.mat, req.gapO, req.gapE)
+        ml_max = int(st.mask_len.max())
+        st.Wb = common.round_up(st.D + 2 * ml_max + 2 * subopt.BM + 64, 256)
+        st.Wb2 = common.round_up(st.D + subopt.BM + 64, 256)
+        st.ref_ext = _device_ref(req.ref, n, Rp + st.Wb, dev)
+        st.ref_codes = st.ref_ext[:Rp]
+    else:
+        st.ref_ext = None
+        st.ref_codes = _device_ref(req.ref, n, Rp, dev)
     st.mat_ext_d = _to(dev, common.extend_matrix(req.mat), torch.int8)
     # one upload of the read codes serves forward, rerun and reverse passes
     st.reads_d = _to(dev, common.pad_reads(req.reads, L, pad_code=n),
@@ -496,13 +564,16 @@ def _leaf_start(req: BatchRequest, dev):
     score_d, er_d, ed_d, mc_d = _forward(st, st.reads_d, st.rl_d, col_word,
                                          word_tier)
     st.fwd_d = torch.stack([score_d, er_d, ed_d])
+    if streaming:
+        st.bm_d, st.sub_d = mc_d, None  # (B, nblk) block maxima, for mid
+        return st
     # speculative suboptimal launch (col_word edges, see docstring); the
     # big (B, Rp) maxima buffer is consumed right here in the device queue
     # and freed — only (B,) results stay in flight
     s2_d, re2_d = scan_sw.second_best_batch(
         mc_d, er_d, _to(dev, st.mask_len), ref_len, _to(dev, col_word))
     del mc_d
-    st.sub_d = torch.stack([s2_d, re2_d])
+    st.bm_d, st.sub_d = None, torch.stack([s2_d, re2_d])
     return st
 
 
@@ -512,11 +583,15 @@ def _leaf_mid(st: _LeafState):
     req, B, ref_len = st.req, st.B, st.ref_len
     with _phase("forward"):
         # ONE stacked download (the only sync of the forward stage)
-        packed = torch.cat([st.fwd_d, st.sub_d]).cpu().numpy()
+        if st.sub_d is not None:
+            packed = torch.cat([st.fwd_d, st.sub_d]).cpu().numpy()
+            score2, ref_end2 = packed[3].copy(), packed[4].copy()
+        else:
+            packed = st.fwd_d.cpu().numpy()
+            score2 = ref_end2 = None
         st.fwd_d = st.sub_d = None
     score, end_ref, end_read = (packed[0].copy(), packed[1].copy(),
                                 packed[2].copy())
-    score2, ref_end2 = packed[3].copy(), packed[4].copy()
 
     word = np.full(B, st.word_tier)
     if req.score_size == 2:
@@ -544,20 +619,31 @@ def _leaf_mid(st: _LeafState):
                 end_ref[idx] = packed_r[1]
                 end_read[idx] = packed_r[2]
             with _phase("suboptimal"):
-                # the rerun tier's suboptimal scan runs directly on the
-                # rerun's per-column maxima (no splice into a (B, R) array)
-                s2_r, re2_r = scan_sw.second_best_batch(
-                    mc_r, er_r, _to(st.dev, st.mask_len[idx]), ref_len,
-                    torch.full((k,), rerun_word, dtype=torch.bool,
-                               device=st.dev))
+                if st.streaming:
+                    # splice the rerun tier's block maxima in: `word` is
+                    # already each read's final tier, so one composition
+                    # below serves the whole leaf (in place: the leaf owns
+                    # bm_d)
+                    st.bm_d[idx_d] = mc_r
+                else:
+                    # the rerun tier's suboptimal scan runs directly on the
+                    # rerun's per-column maxima (no splice into a (B, R)
+                    # array)
+                    s2_r, re2_r = scan_sw.second_best_batch(
+                        mc_r, er_r, _to(st.dev, st.mask_len[idx]), ref_len,
+                        torch.full((k,), rerun_word, dtype=torch.bool,
+                                   device=st.dev))
+                    packed2r = torch.stack([s2_r, re2_r]).cpu().numpy()
+                    score2[idx] = packed2r[0]
+                    ref_end2[idx] = packed2r[1]
                 del mc_r
-                packed2r = torch.stack([s2_r, re2_r]).cpu().numpy()
-                score2[idx] = packed2r[0]
-                ref_end2[idx] = packed2r[1]
     # the reference word kernel saturates at 32767 (_mm_adds_epi16); clamp
     # word-tier scores to its ceiling (positions beyond saturation are
     # undefined in the reference too)
     score = np.where(word, np.minimum(score, 32767), score)
+    if st.streaming:
+        with _phase("suboptimal"):
+            score2, ref_end2 = _second_best_streaming(st, end_ref, word)
 
     st.score, st.end_ref, st.end_read = score, end_ref, end_read
     st.score2, st.ref_end2, st.word = score2, ref_end2, word
@@ -705,6 +791,53 @@ def pipeline_fallback(req: BatchRequest) -> list:
                          score_size=req.score_size)
         for b, r in enumerate(req.reads)
     ]
+
+
+def _second_best_streaming(st: _LeafState, end_ref, word):
+    """Bounded-memory (score2, ref_end2), bit-identical to
+    scan_sw.second_best_batch on the full per-column maxima (ref:
+    src/ssw.c:358-381): block maxima from the forward kernel's blockmax
+    mode (st.bm_d, consumed here), column resolution near the exclusion
+    window and inside the winning block from two per-read window re-runs
+    of the DP (forward_perread with emit_maxcol, from zero state D columns
+    early: exact by the restart margin, ops/subopt.py).  Device work, one
+    download."""
+    dev, req, BM = st.dev, st.req, subopt.BM
+    er = _to(dev, end_ref.astype(np.int32))
+    ml = _to(dev, st.mask_len)
+    word_d = _to(dev, np.asarray(word, dtype=bool))
+    lo = (er - ml).clamp_min(0)
+    ws = ((lo // BM) * BM - st.D).clamp_min(0)
+
+    # per-read FINAL-tier geometry: mixed byte/word rows (and mixed seg
+    # geometries on the quirk path) in one batch
+    prof, cm, seg, ss = _prep_core(st.reads_d, st.rl_d, st.mat_ext_d,
+                                   word_d, word_d, st.L)
+
+    def window_maxima(starts, W):
+        refw = subopt.gather_windows(st.ref_ext, starts, W)
+        return cuda_sw.forward_perread(prof, refw, st.rl_d, cm, seg, ss,
+                                       req.gapO, req.gapE, st.quirk,
+                                       emit_maxcol=True)[3]
+
+    s2, hasA, hasP, hasB, firstP_i, bstar = subopt.compose_window(
+        st.bm_d, window_maxima(ws, st.Wb), ws, er, ml, word_d, st.ref_len)
+    st.bm_d = None
+
+    # resolve the first-attaining column of block-region winners with a
+    # second bounded re-run (run for every read: one launch, small)
+    ws2 = (bstar * BM - st.D).clamp_min(0)
+    fc = subopt.resolve_block(window_maxima(ws2, st.Wb2), ws2, bstar, s2,
+                              st.ref_len)
+
+    # ordered-region precedence: blocks before the window, then the partial
+    # zone, then blocks after (the full scan's first-index tie-break)
+    ref_end2 = torch.where(hasA, fc,
+                           torch.where(hasP, firstP_i,
+                                       torch.where(hasB, fc, 0)))
+    ref_end2 = torch.where(s2 > 0, ref_end2, 0)
+    packed = torch.stack([s2, ref_end2]).cpu().numpy()
+    return packed[0].copy(), packed[1].copy()
 
 
 def _reverse_core(reads_d, er, ed, score1, ref_dev, mat_ext_d, *, L, W, n,

@@ -1,6 +1,7 @@
 """The port's CLI (ssw_tpu_torch.cli.main on device "cpu") byte-equal to the
 golden outputs captured from the reference `ssw_test` binary, on every case
-that tests/test_cli_golden.py checks for the JAX package."""
+that tests/test_cli_golden.py checks for the JAX package, and on a few of
+them again with the streaming suboptimal scan forced."""
 
 import io
 import os
@@ -8,7 +9,7 @@ import shutil
 
 import pytest
 
-from ssw_tpu_torch import cli
+from ssw_tpu_torch import cli, pipeline
 
 HERE = os.path.dirname(__file__)
 DATA = os.path.join(HERE, "data")
@@ -25,6 +26,12 @@ CASES = [
       "54mer_hap1_1.100.fastq"], "g_54_10k_m1x3o5e2.txt"),
     (["1k.fa", "test.seq", "-c"], "g_testseq_blast.txt"),
 ]
+
+# small goldens once more with the streaming suboptimal scan forced: DNA
+# (byte tier, -r strands, SAM) and protein (the quirk, the int32 kernel)
+STREAM_CASES = [c for c in CASES if c[1] in (
+    "g_testseq_blast.txt", "g_54_1k_blast.txt", "g_r1_sam.txt",
+    "g_prot_blast.txt")]
 
 SLOW_CASES = [
     (["-c", "-s", "-h", "-r", "100k.fa", "54mer_hap1_1.100.fastq"],
@@ -53,6 +60,23 @@ def _golden(name):
 def test_cli_golden(args, gold):
     rc, out, _ = run_cli(_paths(args))
     assert rc == 0
+    assert out == _golden(gold)
+
+
+@pytest.mark.parametrize("args,gold", STREAM_CASES)
+def test_cli_golden_streaming(args, gold, monkeypatch):
+    assert len(STREAM_CASES) == 4
+    calls = []
+    real = pipeline._second_best_streaming
+
+    def spy(st, end_ref, word):
+        calls.append(st.B)
+        return real(st, end_ref, word)
+
+    monkeypatch.setattr(pipeline, "STREAM_SUBOPT", True)
+    monkeypatch.setattr(pipeline, "_second_best_streaming", spy)
+    rc, out, _ = run_cli(_paths(args))
+    assert rc == 0 and calls
     assert out == _golden(gold)
 
 

@@ -88,6 +88,36 @@ def test_i16_parity_gate_runs_once_uncounted(card):
     assert card.index in cuda_sw._I16_CHECKED
 
 
+@pytest.mark.parametrize("L,B,mat,gapO,gapE,quirk,max_sub", [
+    (128, 37, dna_matrix(2, 2), 3, 1, False, 2),      # int16 tier, odd B
+    (64, 36, dna_matrix(1, 3), 5, 2, False, 3),       # int16 tier, even B
+    (128, 37, dna_matrix(2, 2), 3, 1, False, None),   # int32
+    (256, 21, BLOSUM50, 3, 1, True, 5),               # int32, quirk
+    (1088, 21, dna_matrix(2, 2), 3, 1, False, 2),     # int16, global rows
+    (1088, 13, dna_matrix(2, 2), 3, 1, False, None),  # int32, global rows
+])
+def test_forward_shared_blockmax_kernel_equals_plain(card, L, B, mat, gapO,
+                                                     gapE, quirk, max_sub):
+    """Blockmax mode: (B, ceil(R/256)) block maxima over the columns below
+    valid_len (1270: not a multiple of 256, and R = 1500 runs past it), and
+    the base mode's score/end_ref/end_read on the same inputs."""
+    args = _inputs(card, B, L, 1500, mat, False, seed=L + B)
+    i16 = cuda_sw.i16_exact(L, gapO, gapE, max_sub, quirk)
+    name = cuda_sw.shared_kernel_name(i16, True)
+    before = cuda_sw.launch_counts()
+    got = cuda_sw.forward_shared(*args, gapO, gapE, quirk, max_sub=max_sub,
+                                 blockmax=True, valid_len=1270)
+    after = cuda_sw.launch_counts()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} \
+        == {name: 1}
+    assert tuple(got[3].shape) == (B, 6)
+    _equal(got, scan_sw.forward_shared_ref(*args, gapO, gapE, quirk,
+                                           blockmax=True, valid_len=1270))
+    assert not got[3][:, 5].any()  # block 5 starts at column 1280 >= 1270
+    base = cuda_sw.forward_shared(*args, gapO, gapE, quirk, max_sub=max_sub)
+    _equal(got[:3], base[:3])
+
+
 @pytest.mark.parametrize("terminate,emit", [(False, False), (True, False),
                                             (True, True)])
 def test_forward_perread_kernel_equals_plain(card, terminate, emit):
@@ -125,5 +155,35 @@ def test_pipeline_on_card_equals_cpu(card):
     # DNA m2/x2/o3/e1: every forward launch takes the int16 tier
     assert counts["forward_shared_i16"] > 0 and counts["forward_perread"] > 0
     assert counts["forward_shared"] == 0
+    want = pipeline.align_batch(req, device="cpu")
+    assert [vars(a) for a in got] == [vars(b) for b in want]
+
+
+def test_streaming_pipeline_on_card_equals_cpu(card, monkeypatch):
+    """The streaming suboptimal path on the card (blockmax kernels + window
+    re-runs) against the non-streaming path on the CPU."""
+    rng = np.random.default_rng(12)
+    unit = rng.integers(0, 4, 97).astype(np.int8)
+    ref = np.concatenate([np.tile(unit, 12),
+                          rng.integers(0, 4, 2000).astype(np.int8)])
+    reads = [unit.copy() for _ in range(6)]
+    for _ in range(60):
+        ln = int(rng.integers(30, 200))
+        s = int(rng.integers(0, len(ref) - ln))
+        r = ref[s:s + ln].copy()
+        m = rng.random(ln) < 0.05
+        r[m] = rng.integers(0, 4, int(m.sum()))
+        reads.append(r)
+    req = pipeline.BatchRequest(reads=reads, ref=ref, mat=dna_matrix(2, 2),
+                                gapO=3, gapE=1,
+                                mask_len=[max(len(r) // 2, 15)
+                                          for r in reads])
+    monkeypatch.setattr(pipeline, "STREAM_SUBOPT", True)
+    cuda_sw.reset_launches()
+    got = pipeline.align_batch(req)
+    counts = cuda_sw.launch_counts()
+    assert counts["forward_shared_i16_blockmax"] > 0
+    assert counts["forward_shared_i16"] == counts["forward_shared"] == 0
+    monkeypatch.setattr(pipeline, "STREAM_SUBOPT", False)
     want = pipeline.align_batch(req, device="cpu")
     assert [vars(a) for a in got] == [vars(b) for b in want]

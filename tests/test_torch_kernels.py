@@ -265,6 +265,8 @@ def test_cuda_wrappers_route_cpu_tensors_to_plain():
                                 emit_maxcol=True), REV)
     assert cuda_sw.launch_counts() == {"forward_shared": 0,
                                        "forward_shared_i16": 0,
+                                       "forward_shared_blockmax": 0,
+                                       "forward_shared_i16_blockmax": 0,
                                        "forward_perread": 0}
 
 

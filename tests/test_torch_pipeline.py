@@ -221,12 +221,15 @@ def test_memory_split_matches_jax_rules(monkeypatch, capsys):
             cap = max(64, int(jax_pipeline.MAXCOL_HARD_CAP // (Rp * 2))
                       // 64 * 64)
             want = max(want, min(jax_pipeline._sweet_rows(L), cap))
-            assert pipeline._rows_per_leaf(Rp, L) == want
+            assert pipeline._rows_per_leaf(Rp, L, False) == want
     # a small budget splits 150 reads into leaves of 64, 64 and 22 rows
+    # (with the full scan: under that budget the memory rule would stream)
     req = _dna_req(seed=10, n_reads=150, lmin=15, lmax=50)
     for mod in (pipeline, jax_pipeline):
         monkeypatch.setattr(mod, "MAXCOL_BUDGET", 64 * 2 * 768)
         monkeypatch.setattr(mod, "MAXCOL_HARD_CAP", 64 * 2 * 768)
+    monkeypatch.setattr(pipeline, "STREAM_SUBOPT", False)
+    monkeypatch.setenv("SSW_TPU_STREAM_SUBOPT", "0")
     plan = pipeline._plan_async(pipeline.BatchRequest.from_fields(req))
-    assert [len(idx) for idx, _ in plan] == [64, 64, 22]
+    assert [len(idx) for idx, _, _ in plan] == [64, 64, 22]
     _compare(req, capsys)
