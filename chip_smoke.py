@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (ssw_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py            # needs one CUDA card
+    python3 chip_smoke.py                 # needs one CUDA card
+    python3 chip_smoke.py --kernels-only  # phases 1-3, then exit 2
 
 Phases (any failure exits non-zero before the final line):
   1. device: fails without CUDA; prints the card's name and power limit
@@ -12,23 +13,35 @@ Phases (any failure exits non-zero before the final line):
      geometry, L buckets 64..512 (+ generic-variant widths), ragged B and R,
      the int16 tier of forward_shared, terminate and emit_maxcol, and the
      blockmax mode of both forward kernels (valid_len inside the last
-     blocks, score/ends equal to the base mode's on the same inputs)
+     blocks, score/ends equal to the base mode's on the same inputs); the
+     packed kernel (both tiers' slots, the quirk, dual, degenerate reads,
+     W 256..4096, up to 64 slots) and the dual mode of both forward tiers,
+     also equal to the unpacked blockmax kernel channel by channel
   4. the ssw_test main path (ssw_tpu_torch.cli.main) on the card, byte-equal
      to the reference-binary captures in tests/golden (configs 1-3), then
      every golden again with the streaming suboptimal scan forced
   5. config 4 at real size: 8192 Illumina-like 100 bp reads sampled from
-     tests/data/1M.fa, -c -s -h -r, run with the full (B, R) suboptimal
-     scan and streaming in turns (full, streaming, streaming, full); the SAM
-     outputs must be byte-equal.  reads/s, GCUPS, phase seconds, peak
-     device memory and the share of reads whose POS is the sampled
-     position, for each run.
+     tests/data/1M.fa, -c -s -h -r, in turns: the full (B, R) suboptimal
+     scan, streaming unpacked, streaming by the default rules (packed),
+     streaming with PACK = True, then back; the SAM outputs must be
+     byte-equal.  reads/s, GCUPS, phase seconds, peak device memory,
+     launches and the share of reads whose POS is the sampled position,
+     for each run.
   5b. a 10 Mbp target (1M.fa and nine copies of it with 5 % seeded
      substitutions, one record) with 4096 reads, streaming by the default
      rule; the first 256 reads again with the full scan, byte-equal.
-     Launch counts are set to 0 before phase 4 and read after phase 5b:
+  5c. the reference README's Ion Torrent headline at full size: 1000 reads
+     of 25-540 bp vs a 4,938,920 bp genome (tools/make_data.py's generator,
+     copied), -c -s -h, streaming, in turns: the default rules (packed, the
+     dual tier), unpacked dual, the re-run route (PACK = DUAL = False), the
+     JAX planner's packing (PACK = True), the default again, byte-equal;
+     then its reads of 273 bp and more with the penalties scaled by 20 (the
+     int32 tier), dual vs the re-run route, byte-equal.
+     Launch counts are set to 0 before phase 4 and read after phase 5c:
      these are the main path, and each kernel must have run in it.
-  6. kernel timing at the largest shapes phases 4-5b gave each kernel,
-     beside the plain version and the integer-ALU bound; prints the
+  6. kernel timing at the largest shapes phases 4-5c gave each kernel,
+     beside the plain version and the integer-ALU bound, and packed leaves
+     beside unpacked leaves of the same reads in turns; prints the
      {"kernels": [...]} line
 
 The last line of stdout is {"ok": true, "device": {...}}.  Imports nothing
@@ -269,6 +282,149 @@ def phase_kernels(torch, dev):
     return worst
 
 
+def make_packed(torch, common, dev, *, mat, lens, word_rows, W, R, vl, seed,
+                max_slots=64):
+    """Reads of the given lengths (half embedded in the target with 5 %
+    substitutions), the target's columns past vl the virtual letter (the
+    pipeline's padding), in the packed layout (common.pack_plan at W lanes)
+    and unpacked: (packed args, unpacked args with each read's tier's
+    col_mask, byte-tier col_mask, word-tier col_mask, plan)."""
+    rng = np.random.default_rng(seed)
+    n = mat.shape[0]
+    ref = np.full(R, n, np.int32)
+    ref[:vl] = rng.integers(0, n - 1, vl)
+    reads = []
+    for b, ln in enumerate(lens):
+        ln = int(ln)
+        if b % 2 and vl > ln:
+            s = int(rng.integers(0, vl - ln))
+            r = ref[s:s + ln].copy()
+            m = rng.random(ln) < 0.05
+            r[m] = rng.integers(0, n - 1, int(m.sum()))
+        else:
+            r = rng.integers(0, n - 1, ln).astype(np.int32)
+        reads.append(r)
+    read_len = np.asarray(lens, np.int32)
+    word_rows = np.asarray(word_rows, bool)
+    L = common.bucket_size(max(common.pad_total(int(read_len.max()), False),
+                               1), 64)
+    rp = common.pad_reads(reads, L, n)
+    slot_len = np.where(word_rows, (read_len + 7) // 8 * 8,
+                        (read_len + 15) // 16 * 16).astype(np.int32)
+    plan = common.pack_plan(slot_len, W, max_slots=max_slots)
+    mat_ext = common.extend_matrix(mat)
+    so, sl, rl_s = common.pack_tables(plan, read_len)
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a)).to(dev)
+    packed = (t(common.build_profile(common.pack_codes(plan, rp, n), None,
+                                     mat_ext)), t(ref), t(so), t(sl),
+              t(rl_s), t((plan.row * plan.S + plan.slot).astype(np.int32)))
+    gb = common.batch_geometry(read_len, L, word=False)
+    gw = common.batch_geometry(read_len, L, word=True)
+    seg = gw if word_rows.all() else gb
+    unpacked = (t(common.build_profile(rp, read_len, mat_ext)), t(ref),
+                t(read_len),
+                t(np.where(word_rows[:, None], gw.col_mask, gb.col_mask)),
+                t(seg.seg_id), t(seg.seg_start))
+    return packed, unpacked, t(gb.col_mask), t(gw.col_mask), plan
+
+
+def phase_packed(torch, dev, worst):
+    """The packed kernel (both tiers' slot geometry, the quirk, dual,
+    degenerate reads, W 256..4096 with up to 64 slots, slots past 1024
+    lanes) and the dual mode of both forward tiers, exactly against their
+    plain versions and against the unpacked blockmax kernel, channel by
+    channel."""
+    from ssw_tpu_torch.core.encoding import BLOSUM50
+    from ssw_tpu_torch.ops import common, cuda_sw, scan_sw
+
+    rng = np.random.default_rng(77)
+    q_mat = dna_mat(2, 4)  # min -4 < -2*gapE: the quirk is observable
+    cases = [  # label, mat, gapO, gapE, quirk, lens, word_rows, W, R, vl
+        ("dna m2x2o3e1 byte W=1024", dna_mat(2, 2), 3, 1, False,
+         rng.integers(20, 221, 40), np.zeros(40, bool), 1024, 768, 700),
+        ("dna m1x3o5e2 mixed tiers W=512", dna_mat(1, 3), 5, 2, False,
+         rng.integers(20, 221, 37), np.arange(37) % 2 == 0, 512, 768, 700),
+        ("quirk dna 2/-4 byte W=512", q_mat, 3, 1, True,
+         rng.integers(20, 221, 24), np.zeros(24, bool), 512, 512, 500),
+        ("quirk dna 2/-4 word W=512", q_mat, 3, 1, True,
+         rng.integers(20, 221, 24), np.ones(24, bool), 512, 512, 500),
+        ("quirk BLOSUM50 o10e1 byte W=1024", BLOSUM50, 10, 1, True,
+         rng.integers(20, 201, 30), np.zeros(30, bool), 1024, 600, 600),
+        ("quirk BLOSUM50 o10e1 word W=1024", BLOSUM50, 10, 1, True,
+         rng.integers(20, 201, 30), np.ones(30, bool), 1024, 600, 600),
+        ("degenerate reads W=256", dna_mat(2, 2), 3, 1, False,
+         np.array([0, 1, 90, 0, 1, 37, 120, 2, 0, 64]), np.zeros(10, bool),
+         256, 512, 430),
+        ("64 slots W=2048", dna_mat(2, 2), 3, 1, False,
+         rng.integers(17, 33, 200), np.zeros(200, bool), 2048, 512, 480),
+        ("64 slots W=4096", dna_mat(2, 2), 3, 1, False,
+         rng.integers(33, 65, 160), np.zeros(160, bool), 4096, 512, 512),
+        ("slots past 1024 lanes W=4096", dna_mat(2, 2), 3, 1, False,
+         rng.integers(1100, 1500, 6), np.zeros(6, bool), 4096, 512, 400),
+    ]
+    for label, mat, gO, gE, quirk, lens, word_rows, W, R, vl in cases:
+        pa, ua, cm_byte, cm_word, plan = make_packed(
+            torch, common, dev, mat=mat, lens=lens, word_rows=word_rows, W=W,
+            R=R, vl=vl, seed=len(label))
+        ms = int(np.abs(mat).max())
+        word = bool(word_rows.all())
+        duals = (False,) if quirk or not (~word_rows).all() else (False,
+                                                                  True)
+        for dual in duals:
+            kw = dict(max_sub=ms, valid_len=vl, quirk=quirk, word=word,
+                      dual=dual)
+            got = cuda_sw.forward_shared_packed(*pa, gO, gE, **kw)
+            want = scan_sw.forward_shared_ref_packed(*pa, gO, gE, **kw)
+            torch.cuda.synchronize()
+            name = "forward_shared_packed" + ("_dual" if dual else "")
+            err = max_abs_diff(torch, got, want)
+            worst[name] = max(worst[name], err)
+            log(f"  packed {label} S={plan.S} rows={plan.n_rows} "
+                f"dual={dual}: max_abs_err {err}")
+            check(err == 0, f"packed {label} dual={dual}: kernel != plain "
+                  f"(max_abs_err {err})")
+            # the unpacked blockmax kernel (int32) on the same reads
+            if dual:
+                byte = cuda_sw.forward_shared(*ua[:3], cm_byte, *ua[4:], gO,
+                                              gE, False, blockmax=True,
+                                              valid_len=vl)
+                wrd = cuda_sw.forward_shared(*ua[:3], cm_word, *ua[4:], gO,
+                                             gE, False, blockmax=True,
+                                             valid_len=vl)
+                same = (max_abs_diff(torch, got[:3], byte[:3]) == 0
+                        and max_abs_diff(torch, (got[3][:, 0],
+                                                 got[3][:, 1]),
+                                         (byte[3], wrd[3])) == 0)
+                # the dual mode of both unpacked tiers on the same reads
+                for tier in (None, ms):
+                    if tier and not cuda_sw.i16_exact(
+                            int(ua[0].shape[2]), gO, gE, ms, False):
+                        continue
+                    ud = cuda_sw.forward_shared(
+                        *ua[:3], cm_byte, *ua[4:], gO, gE, False,
+                        max_sub=tier, blockmax=True, valid_len=vl,
+                        wmask=cm_word)
+                    uw = scan_sw.forward_shared_ref(
+                        *ua[:3], cm_byte, *ua[4:], gO, gE, False,
+                        blockmax=True, valid_len=vl, wmask=cm_word)
+                    torch.cuda.synchronize()
+                    dname = cuda_sw.shared_kernel_name(tier is not None,
+                                                       True, True)
+                    derr = max_abs_diff(torch, ud, uw)
+                    worst[dname] = max(worst[dname], derr)
+                    log(f"  {dname} {label}: max_abs_err {derr}, equal to "
+                        f"the packed dual "
+                        f"{max_abs_diff(torch, ud, got) == 0}")
+                    check(derr == 0 and max_abs_diff(torch, ud, got) == 0,
+                          f"{dname} {label}: kernel != plain or != packed")
+            else:
+                unp = cuda_sw.forward_shared(*ua, gO, gE, quirk,
+                                             blockmax=True, valid_len=vl)
+                same = max_abs_diff(torch, got, unp) == 0
+            check(same, f"packed {label} dual={dual}: != the unpacked "
+                  f"blockmax kernel")
+
+
 # ------------------------------------------------------------------- phase 4
 
 GOLDEN_CASES = [
@@ -410,21 +566,26 @@ def make_target10m(path, seed) -> bytes:
     return seq
 
 
-def run_sam(torch, dev, target, fq, label, card, truth=None):
-    """cli.main -c -s -h -r on the card under a GcupsCounter: returns the
-    SAM text and the run's numbers (wall ends in a synchronize)."""
+def run_sam(torch, dev, target, fq, label, card, truth=None,
+            flags=("-c", "-s", "-h", "-r")):
+    """cli.main `flags` (default -c -s -h -r) on the card under a
+    GcupsCounter: returns the SAM text and the run's numbers (wall ends in
+    a synchronize), with the kernel launches the run made."""
     from ssw_tpu_torch import cli, pipeline, profiling
+    from ssw_tpu_torch.ops import cuda_sw
 
     counter = profiling.GcupsCounter()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
+    before = cuda_sw.launch_counts()
     t0 = time.perf_counter()
     with pipeline.profiled(counter):
-        rc, out, err = run_cli(cli, ["-c", "-s", "-h", "-r", target, fq],
-                               dev)
+        rc, out, err = run_cli(cli, [*flags, target, fq], dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev)
+    launches = {k: n - before[k] for k, n in cuda_sw.launch_counts().items()
+                if n != before[k]}
     check(rc == 0, f"{label}: cli rc {rc}: {err[-2000:]}")
     hits = total = 0
     for line in out.splitlines():
@@ -441,6 +602,7 @@ def run_sam(torch, dev, target, fq, label, card, truth=None):
         "gcups_forward_phase": counter.cells / fwd_s / 1e9 if fwd_s else 0.0,
         "gcups_wall": counter.cells / wall / 1e9,
         "phase_seconds": counter.seconds, "peak_device_bytes": peak,
+        "launches": launches,
     }
     if truth is not None:
         res["begin_at_sampled_pos"] = hits / max(len(truth), 1)
@@ -454,34 +616,43 @@ def run_sam(torch, dev, target, fq, label, card, truth=None):
 
 
 def phase_config4(torch, dev, scratch, n_reads, card):
-    """Config 4 with the full (B, R) suboptimal scan and streaming, in turns
-    (full, streaming, streaming, full): every SAM output must be
-    byte-equal.  pipeline.STREAM_MIN_COLS is set from these walls."""
+    """Config 4 in turns: the full (B, R) suboptimal scan, streaming
+    unpacked (PACK = False), streaming by the default rules (which pack),
+    streaming with the JAX planner's packing (PACK = True: 1024-lane rows of
+    9 slots), then back in reverse order: every SAM output must be
+    byte-equal.  pipeline.STREAM_MIN_COLS and _pack_rule are set from these
+    walls."""
     from ssw_tpu_torch import pipeline
 
     fq = os.path.join(scratch, "illumina_1M.fastq")
     truth = sample_reads(fq, n_reads, seed=100_000, genome=load_genome())
     target = os.path.join(DATA, "1M.fa")
-    outs, walls = [], {False: [], True: []}
-    try:
-        for mode in (False, True, True, False):
-            pipeline.STREAM_SUBOPT = mode
-            tags[0] = "5s" if mode else "5"
-            out, res = run_sam(
-                torch, dev, target, fq,
-                "config4 streaming" if mode else "config4 full-scan", card,
-                truth)
-            outs.append(out)
-            walls[mode].append(res["wall_s"])
-    finally:
-        pipeline.STREAM_SUBOPT = None
-    check(all(o == outs[0] for o in outs), "config 4: the streaming SAM "
-          "differs from the full scan's")
-    mean = {m: sum(w) / len(w) for m, w in walls.items()}
-    log(f"  config4: streaming SAM byte-equal to the full scan's "
-        f"({len(outs[0])} bytes); mean wall full {mean[False]:.4f} s, "
-        f"streaming {mean[True]:.4f} s, ratio "
-        f"{mean[True] / mean[False]:.4f}")
+    runs = {"full scan": (False, None, "5"),
+            "streaming unpacked": (True, False, "5s"),
+            "streaming default": (None, None, "5p"),
+            "streaming PACK=True": (None, True, "5j")}
+    order = ["full scan", "streaming unpacked", "streaming default",
+             "streaming PACK=True", "streaming default",
+             "streaming unpacked", "full scan"]
+    outs, walls = [], {k: [] for k in runs}
+    for label in order:
+        stream, pk, tags[0] = runs[label]
+        pipeline.STREAM_SUBOPT, pipeline.PACK = stream, pk
+        try:
+            out, res = run_sam(torch, dev, target, fq, f"config4 {label}",
+                               card, truth)
+        finally:
+            pipeline.STREAM_SUBOPT = pipeline.PACK = None
+        check(label == "full scan" or label == "streaming unpacked"
+              or res["launches"].get("forward_shared_packed", 0) > 0,
+              f"config 4 {label} did not pack")
+        outs.append(out)
+        walls[label].append(res["wall_s"])
+    check(all(o == outs[0] for o in outs), "config 4: the streaming SAMs "
+          "(unpacked, packed) differ from the full scan's")
+    mean = {k: sum(w) / len(w) for k, w in walls.items()}
+    log(f"  config4: all SAMs byte-equal ({len(outs[0])} bytes); mean walls "
+        f"{json.dumps(mean)}")
 
 
 def phase_target10m(torch, dev, scratch, card):
@@ -532,6 +703,116 @@ def phase_target10m(torch, dev, scratch, card):
     return res, res_full
 
 
+ION_GENOME = 4_938_920     # the reference README's Ion Torrent headline:
+ION_READS = 1000           # 1000 reads vs a 4,938,920 bp genome, -c -s -h
+ION_I32_MIN_LEN = 273      # reads this long run the scaled penalties' int32
+                           # tier: L 320 * (40 + 20) + 60 >= 2^14
+
+
+def make_iontorrent(out_ref, out_fq, genome_len=ION_GENOME,
+                    n_reads=ION_READS):
+    """The reference README's headline workload (README.md:66-71), as the
+    repository's tools/make_data.py makes it: reads of 25-540 bp (normal
+    around 200 bp, sd 80), 1 % substitutions, on one strand, vs a random
+    genome, from seed 4,938,920.  Returns {read name: 0-based position}."""
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    rng = np.random.default_rng(4_938_920)
+    genome = rng.choice(bases, genome_len).astype(np.uint8)
+    with open(out_ref, "wb") as f:
+        f.write(b">ecoli_synth\t4938920bp\n")
+        for i in range(0, len(genome), 10000):
+            f.write(genome[i:i + 10000].tobytes() + b"\n")
+    truth = {}
+    with open(out_fq, "wb") as f:
+        for i in range(n_reads):
+            ln = int(np.clip(rng.normal(200, 80), 25, 540))
+            pos = int(rng.integers(0, len(genome) - ln))
+            rd = genome[pos:pos + ln].copy()
+            m = rng.random(ln) < 0.01
+            if m.any():
+                rd[m] = rng.choice(bases, int(m.sum()))
+            f.write(b"@ion_%d_%d\n" % (i, pos))
+            f.write(rd.tobytes() + b"\n+\n" + b"I" * ln + b"\n")
+            truth[f"ion_{i}_{pos}"] = pos
+    return truth
+
+
+def phase_iontorrent(torch, dev, scratch, card, genome_len=ION_GENOME,
+                     n_reads=ION_READS):
+    """The Ion Torrent headline at full size, -c -s -h, in turns: the
+    default rules (the dual tier, every group packed by the card's rule),
+    unpacked with the dual tier (PACK = False), the re-run route (PACK =
+    False, DUAL = False), the JAX planner's packing (PACK = True: it packs
+    the L = 192 group), the default again; byte-equal SAMs.  Then the
+    reads of ION_I32_MIN_LEN bp and more with the default penalties scaled
+    by 20 (-m 40 -x 40 -o 60 -e 20: the same alignments, outside the int16
+    tier's bound), dual vs the re-run route."""
+    from ssw_tpu_torch import pipeline
+
+    t0 = time.perf_counter()
+    target = os.path.join(scratch, "ecoli_synth.fa")
+    fq = os.path.join(scratch, "iontorrent_1k.fastq")
+    truth = make_iontorrent(target, fq, genome_len, n_reads)
+    log(f"  target {genome_len} bp, {n_reads} reads, made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    outs, res = [], {}
+    for i, (label, pk, du) in enumerate((
+            ("default", None, None), ("unpacked dual", False, None),
+            ("re-run route", False, False), ("PACK=True", True, None),
+            ("default", None, None))):
+        pipeline.PACK, pipeline.DUAL = pk, du
+        tags[0] = f"5c{i}"
+        try:
+            out, r = run_sam(torch, dev, target, fq, f"ion {label}", card,
+                             truth, flags=("-c", "-s", "-h"))
+        finally:
+            pipeline.PACK = pipeline.DUAL = None
+        outs.append(out)
+        res.setdefault(label, []).append(r)
+    check(all(o == outs[0] for o in outs), "Ion Torrent: the SAMs of the "
+          "default, unpacked dual, re-run, PACK=True and default runs differ")
+    for label in ("default", "PACK=True"):
+        check(res[label][0]["launches"].get("forward_shared_packed_dual", 0)
+              > 0, f"Ion Torrent {label} did not pack")
+    walls = {k: [r["wall_s"] for r in v] for k, v in res.items()}
+    log(f"  ion: five SAMs byte-equal ({len(outs[0])} bytes); walls "
+        f"{json.dumps(walls)}")
+    # int32 tier: long reads, scaled penalties
+    fq32 = os.path.join(scratch, "iontorrent_long.fastq")
+    with open(fq) as f, open(fq32, "w") as g:
+        lines = f.read().splitlines(keepends=True)
+        for k in range(0, len(lines), 4):
+            if len(lines[k + 1]) - 1 >= ION_I32_MIN_LEN:
+                g.writelines(lines[k:k + 4])
+    flags = ("-m", "40", "-x", "40", "-o", "60", "-e", "20", "-c", "-s",
+             "-h")
+    outs32 = []
+    for i, du in enumerate((None, False)):
+        pipeline.PACK, pipeline.DUAL = False, du  # the unpacked int32 tier
+        tags[0] = f"5c_i32_{i}"
+        try:
+            out, r = run_sam(torch, dev, target, fq32,
+                             f"ion >= {ION_I32_MIN_LEN} bp x20 penalties "
+                             + ("dual" if du is None else "re-run route"),
+                             card, None, flags=flags)
+        finally:
+            pipeline.PACK = pipeline.DUAL = None
+        outs32.append(out)
+        if du is None:
+            check(r["launches"].get("forward_shared_dual", 0) > 0,
+                  "scaled penalties did not take the int32 dual tier")
+    recs = [ln.split("\t") for ln in outs32[0].splitlines()
+            if not ln.startswith("@")]
+    hits = sum(int(f[3]) - 1 == truth.get(f[0], -10) for f in recs)
+    check(outs32[0] == outs32[1] and recs and hits >= 0.95 * len(recs),
+          "Ion Torrent, scaled penalties: dual != re-run route, or reads "
+          "off their sampled position")
+    log(f"  ion x20 penalties: {len(recs)} reads, dual SAM byte-equal to "
+        f"the re-run route's, {hits / len(recs):.4f} at the sampled "
+        f"position")
+    return res
+
+
 # the phase label the recorders file each kernel call under
 tags = ["3"]
 
@@ -561,16 +842,20 @@ def record_main_path(cuda_sw):
         return cuda_sw.shared_kernel_name(
             cuda_sw.i16_exact(int(prof.shape[2]), gapO, gapE,
                               kwargs.get("max_sub"), quirk),
-            bool(kwargs.get("blockmax")))
+            bool(kwargs.get("blockmax")), kwargs.get("wmask") is not None)
 
     recs = (Recorder(cuda_sw.forward_shared, shared_name),
+            Recorder(cuda_sw.forward_shared_packed,
+                     lambda args, kwargs: "forward_shared_packed"
+                     + ("_dual" if kwargs.get("dual") else "")),
             Recorder(cuda_sw.forward_perread,
                      lambda args, kwargs: "forward_perread"))
-    cuda_sw.forward_shared, cuda_sw.forward_perread = recs
+    (cuda_sw.forward_shared, cuda_sw.forward_shared_packed,
+     cuda_sw.forward_perread) = recs
 
     def restore():
-        cuda_sw.forward_shared, cuda_sw.forward_perread = (r.fn
-                                                           for r in recs)
+        (cuda_sw.forward_shared, cuda_sw.forward_shared_packed,
+         cuda_sw.forward_perread) = (r.fn for r in recs)
         return {key: call for r in recs for key, call in r.calls.items()}
     return restore
 
@@ -623,13 +908,16 @@ def phase_timing(torch, dev, rec, worst, launches, clock_mhz, slice_cols):
         return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes,
                                                                "bytes")
 
-    def shared_bound(name, prof, cm, cols, quirk):
+    def shared_bound(name, prof, cm, cols, quirk, wmask=None):
         """The recurrence's operations over the lane-cells inside col_mask
-        (plus blockmax's running max per read and column); inputs read once
+        (plus blockmax's running max per read and column, and the dual
+        mode's word-channel max per wmask lane-cell); inputs read once
         (profile, target, masks, read_len), outputs written once (int16
-        maxima or int32 block maxima, three (B,) int32)."""
+        maxima or int32 block maxima, one or two channels, three (B,)
+        int32)."""
         B = prof.shape[0]
-        i16, bm = "_i16" in name, name.endswith("_blockmax")
+        i16 = "_i16" in name
+        bm = name.endswith(("_blockmax", "_dual"))
         opc = (cuda_sw.OPS_PER_CELL_I16 if i16 else
                cuda_sw.OPS_PER_CELL_QUIRK if quirk else cuda_sw.OPS_PER_CELL)
         ops = opc * int(cm.sum()) * cols
@@ -638,9 +926,14 @@ def phase_timing(torch, dev, rec, worst, launches, clock_mhz, slice_cols):
             ops += ((cuda_sw.OPS_PER_COLUMN_BLOCKMAX_I16 if i16 else
                      cuda_sw.OPS_PER_COLUMN_BLOCKMAX) * B * cols)
             out_bytes = 4 * B * ((cols + scan_sw.BM - 1) // scan_sw.BM)
-        nbytes = (prof.numel() + 4 * cols + 3 * cm.numel() + 4 * B
-                  + out_bytes + 12 * B)
-        return bound(ops, nbytes)
+        in_bytes = prof.numel() + 4 * cols + 3 * cm.numel() + 4 * B
+        if wmask is not None:
+            ops += ((cuda_sw.OPS_PER_WORD_CELL_DUAL_I16 if i16 else
+                     cuda_sw.OPS_PER_WORD_CELL_DUAL)
+                    * int(wmask.sum()) * cols)
+            out_bytes *= 2
+            in_bytes += wmask.numel()
+        return bound(ops, in_bytes + out_bytes + 12 * B)
 
     def shared_row(name, source, replaces, tag=None):
         """forward_shared's kernel `name` at its largest main-path call (or
@@ -664,7 +957,8 @@ def phase_timing(torch, dev, rec, worst, launches, clock_mhz, slice_cols):
         torch.cuda.synchronize()
         err = max_abs_diff(torch, got, want)
         check(err == 0, f"{name} at the main-path shape: max_abs_err {err}")
-        b_ms, b_by = shared_bound(name, prof, cm, cols, quirk)
+        wm = kw.get("wmask")
+        b_ms, b_by = shared_bound(name, prof, cm, cols, quirk, wm)
         row = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
@@ -678,7 +972,8 @@ def phase_timing(torch, dev, rec, worst, launches, clock_mhz, slice_cols):
             reps = 1 if B * R > (1 << 32) else 3
             row["leaf_ms"] = time_ms(
                 torch, lambda: cuda_sw.forward_shared(*args, **kw), reps)
-            row["leaf_bound_ms"] = shared_bound(name, prof, cm, R, quirk)[0]
+            row["leaf_bound_ms"] = shared_bound(name, prof, cm, R, quirk,
+                                                wm)[0]
             row["leaf_shape"] = f"B={B} L={L} R={R}"
         return row, args, kw
 
@@ -748,6 +1043,135 @@ def phase_timing(torch, dev, rec, worst, launches, clock_mhz, slice_cols):
     base_vs_blockmax(row, "forward_shared_i16_blockmax", s4,
                      lambda: cuda_sw.forward_shared(*s4, **base_kw),
                      lambda: cuda_sw.forward_shared(*s4, **s4kw))
+    rows.append(row)
+
+    # dual mode, both tiers: the largest main-path call (the Ion Torrent
+    # leaves), and beside it the blockmax mode on the same inputs, in turns
+    fs = lambda *a, **k: cuda_sw.forward_shared(*a, **k)
+    for name, source, tier in (
+            ("forward_shared_i16_dual", "ssw_tpu_torch/csrc/sw_forward_i16.cu",
+             "int16 tier"),
+            ("forward_shared_dual", "ssw_tpu_torch/csrc/sw_forward.cu",
+             "int32")):
+        row, args, kw = shared_row(
+            name, source,
+            f"ssw_tpu/ops/pallas_sw.py:109 (_forward_kernel, dual mode "
+            f":142-151, :405-412, {tier}; pallas_call at :557; wrapper "
+            f"forward_shared_ref :702 with wmask)")
+        bm_kw = {k: v for k, v in kw.items() if k != "wmask"}
+        bm_ms, dual_ms = in_turns(torch, lambda: fs(*args, **bm_kw),
+                                  lambda: fs(*args, **kw), 1)
+        row["leaf_dual_vs_blockmax"] = {"dual_ms": dual_ms,
+                                        "blockmax_ms": bm_ms}
+        rows.append(row)
+
+    def packed_bound(args, kw, cols):
+        """The recurrence's operations over the read slots' lanes, the block
+        running max per read and column, and the dual word channel's max
+        per word-tier lane-cell; inputs (packed profile, target, slot
+        tables, flat_idx) read once, outputs written once."""
+        prof, _, so, sl, rl_s, fi = args[:6]
+        B = fi.numel()
+        sl_r = sl.flatten()[fi.long()]
+        opc = (cuda_sw.OPS_PER_CELL_QUIRK if kw.get("quirk")
+               else cuda_sw.OPS_PER_CELL)
+        ops = (opc * int(sl_r.sum()) + cuda_sw.OPS_PER_COLUMN_BLOCKMAX * B
+               ) * cols
+        nblk = (cols + scan_sw.BM - 1) // scan_sw.BM
+        out_bytes = 4 * B * nblk + 12 * B
+        if kw.get("dual"):
+            rl_r = rl_s.flatten()[fi.long()]
+            wl = torch.minimum(sl_r, (rl_r + 7) // 8 * 8)
+            ops += cuda_sw.OPS_PER_WORD_CELL_DUAL * int(wl.sum()) * cols
+            out_bytes += 4 * B * nblk
+        return bound(ops, prof.numel() + 4 * cols + 12 * so.numel() + 4 * B
+                     + out_bytes)
+
+    def packed_row(name, tag=None):
+        """The packed kernel at its largest main-path call: slice vs plain,
+        bound, and the whole leaf."""
+        args, kw, t = call(name, tag)
+        prof, ref = args[:2]
+        R = int(ref.numel())
+        cols = min(slice_cols, R)
+        sl_args = (prof, ref[:cols].contiguous(), *args[2:])
+        plain_kw = {k: v for k, v in kw.items() if k != "slot_max"}
+        ms = time_ms(torch, lambda: cuda_sw.forward_shared_packed(
+            *sl_args, **kw), 5)
+        t0 = time.perf_counter()
+        want = scan_sw.forward_shared_ref_packed(*sl_args, **plain_kw)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        got = cuda_sw.forward_shared_packed(*sl_args, **kw)
+        torch.cuda.synchronize()
+        err = max_abs_diff(torch, got, want)
+        check(err == 0, f"{name} at the main-path shape: max_abs_err {err}")
+        b_ms, b_by = packed_bound(args, kw, cols)
+        S = int(args[2].shape[1])
+        row = {
+            "name": name, "route": "cuda",
+            "source": "ssw_tpu_torch/csrc/sw_forward_packed.cu",
+            "replaces": "ssw_tpu/ops/pallas_sw.py:109 (_forward_kernel, "
+                        "packed mode :137-141, :214-248, :381-404"
+                        + (", dual :398-404" if kw.get("dual") else "")
+                        + "; set-up _forward_call :445-481, pallas_call at "
+                        ":557; wrapper forward_shared_ref_packed :1139)",
+            "launches": launches[name],
+            "max_abs_err": max(err, worst[name]),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None,
+            "shape": f"B={args[5].numel()} rows={prof.shape[0]} "
+                     f"W={prof.shape[2]} S={S} R={cols} "
+                     f"quirk={bool(kw.get('quirk'))} phase {t}"
+                     + (" (column slice of the leaf)" if cols < R else ""),
+        }
+        if cols < R:
+            row["leaf_ms"] = time_ms(
+                torch, lambda: cuda_sw.forward_shared_packed(*args, **kw), 1)
+            # the kernel stops at valid_len: the columns this data needs
+            row["leaf_bound_ms"] = packed_bound(
+                args, kw, min(R, kw.get("valid_len") or R))[0]
+            row["leaf_shape"] = f"R={R} valid_len={kw.get('valid_len')}"
+        return row, args, kw
+
+    def pack_vs_unpacked(row, key, packed, unpacked, others):
+        """A packed leaf and the unpacked leaf of the same reads, in turns,
+        with the same outputs; `others` are timed once after."""
+        pa, pkw = packed
+        ua, ukw = unpacked
+        p_out = cuda_sw.forward_shared_packed(*pa, **pkw)
+        u_out = cuda_sw.forward_shared(*ua, **ukw)
+        torch.cuda.synchronize()
+        check(max_abs_diff(torch, p_out, u_out) == 0,
+              f"{key}: the packed leaf's outputs differ from the unpacked "
+              f"leaf's on the same reads")
+        p_ms, u_ms = in_turns(
+            torch, lambda: cuda_sw.forward_shared_packed(*pa, **pkw),
+            lambda: cuda_sw.forward_shared(*ua, **ukw), 1)
+        row[key] = {"packed_ms": p_ms, "unpacked_ms": u_ms,
+                    "ratio": p_ms / u_ms,
+                    "shape": f"B={ua[0].shape[0]} L={ua[0].shape[2]} "
+                             f"R={ua[1].numel()}; packed W="
+                             f"{pa[0].shape[2]} S={pa[2].shape[1]}"}
+        for label, kw in others.items():
+            row[key][label + "_ms"] = time_ms(
+                torch, lambda: cuda_sw.forward_shared(*ua, **kw), 1)
+
+    # packed: config 4 streaming by the default rules (phase 5p), beside
+    # the unpacked streaming leaf of the same reads (phase 5s)
+    row, pa, pkw = packed_row("forward_shared_packed", "5p")
+    ua, ukw, _ = call("forward_shared_i16_blockmax", "5s")
+    pack_vs_unpacked(row, "config4_leaf_vs_int16_blockmax", (pa, pkw),
+                     (ua, ukw), {"int32_blockmax": {
+                         k: v for k, v in ukw.items() if k != "max_sub"}})
+    rows.append(row)
+    # packed dual: the Ion Torrent L = 192 group (phase 5c, PACK = True),
+    # beside the unpacked dual leaf and the blockmax leaf of the same reads
+    row, pa, pkw = packed_row("forward_shared_packed_dual", "5c3")
+    ua, ukw, _ = call("forward_shared_i16_dual", "5c1")
+    pack_vs_unpacked(row, "ion_L192_leaf_vs_int16_dual", (pa, pkw),
+                     (ua, ukw), {"int16_blockmax": {
+                         k: v for k, v in ukw.items() if k != "wmask"}})
     rows.append(row)
 
     # forward_perread at the recorded reverse pass of config 4
@@ -848,7 +1272,11 @@ def main() -> int:
         t0 = time.perf_counter()
         log("phase 3 kernels vs plain versions (exact):")
         worst = phase_kernels(torch, dev)
+        phase_packed(torch, dev, worst)
         log(f"phase 3 done in {time.perf_counter() - t0:.1f} s")
+        if "--kernels-only" in sys.argv[1:]:
+            log("stopped after phase 3 (--kernels-only): no result")
+            return 2
         # phases 4-5b are the main path: launch counts from 0
         cuda_sw.reset_launches()
         restore = record_main_path(cuda_sw)
@@ -874,10 +1302,15 @@ def main() -> int:
                 f"-c -s -h -r:")
             phase_target10m(torch, dev, scratch, smi)
             log(f"phase 5b done in {time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            log(f"phase 5c Ion Torrent headline: {ION_READS} reads vs "
+                f"{ION_GENOME} bp, -c -s -h:")
+            phase_iontorrent(torch, dev, scratch, smi)
+            log(f"phase 5c done in {time.perf_counter() - t0:.1f} s")
         finally:
             rec = restore()
         launches = cuda_sw.launch_counts()
-        log(f"main-path launches (phases 4-5b): {json.dumps(launches)}")
+        log(f"main-path launches (phases 4-5c): {json.dumps(launches)}")
         for name, n in launches.items():
             check(n > 0, f"{name} was not launched on the main path")
         t0 = time.perf_counter()

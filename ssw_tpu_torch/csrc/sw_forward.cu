@@ -27,6 +27,16 @@
 // in a chain of ~20 shuffles, and the mode keeps it: the best-column
 // snapshot and end positions stay exactly the base mode's.
 //
+// Dual mode (template flag Dual, blockmax with the quirk off; the JAX
+// kernel's dual-tier emission, pallas_sw.py:142-151, :405-412) emits both
+// tiers' block maxima in one pass: channel 0 over col_mask (the byte tier's
+// rows), channel 1 over wmask (the word tier's, a subset).  The TPU kernel
+// reduces both masks across lanes; here max over lanes and max over columns
+// commute, so each thread keeps one running max of its own wmask lanes over
+// the block's columns < valid_len and the warp reduces it once per 256
+// columns: K max ops per column and one reduce per block, off the column
+// chain.  Output (B, 2, ceil(R/256)).
+//
 // The quirk is a template flag too.  As a runtime bool it left nvcc to
 // choose between a loop split on it and the quirk's shuffles behind
 // per-step branches, and small edits flipped the choice.  On the config-4
@@ -48,18 +58,21 @@ struct FwdArgs {
   const uint8_t* col_mask;  // (B, L) bool
   const int8_t* seg_id;     // (B, L)
   const uint8_t* seg_start; // (B, L) bool
+  const uint8_t* wmask;     // (B, L) bool, dual mode: word-tier lanes
   int B, n1, L, R, gapO, gapE, quirk;
   int32_t* score;           // (B,)
   int32_t* end_ref;         // (B,)
   int32_t* end_read;        // (B,)
   int16_t* maxcol;          // (B, R), base mode
-  int32_t* blockmax;        // (B, ceil(R/256)), blockmax mode
+  int32_t* blockmax;        // (B, ceil(R/256)), blockmax mode; (B, 2, ...)
+                            // in dual mode
   int valid_len;            // blockmax: columns < valid_len feed the maxima
   int32_t* scratch;         // (B, 7, L) for GlobRow, else null
 };
 
-template <int KT, bool BlockMax, bool Quirk>
+template <int KT, bool BlockMax, bool Quirk, bool Dual>
 __global__ void sw_forward_kernel(const FwdArgs a) {
+  static_assert(!Dual || (BlockMax && !Quirk), "dual: blockmax, quirk off");
   extern __shared__ __align__(16) unsigned char smem[];
   const int wpb = blockDim.x >> 5, w = threadIdx.x >> 5, t = threadIdx.x & 31;
   const int b = blockIdx.x * wpb + w;
@@ -76,13 +89,23 @@ __global__ void sw_forward_kernel(const FwdArgs a) {
   sw::row_setup<KT>(r, K, t, a.col_mask + row, a.seg_id + row,
                     a.seg_start + row, quirk);
 
+  // dual: this thread's word-tier lanes (bits for the register variant)
+  const uint8_t* wrow = Dual ? a.wmask + row : nullptr;
+  unsigned wbits = 0u;
+  if constexpr (Dual && KT > 0) {
+#pragma unroll
+    for (int k = 0; k < KT; ++k)
+      wbits |= unsigned(wrow[t * KT + k] != 0) << k;
+  }
   int gmax = 0, end_ref = -1;
   int code_v = 0;
   int16_t mc_v = 0;
   int bm_run = 0;  // blockmax: running max of the current 256-column block
+  int w_run = 0;   // dual: this thread's running max over its wmask lanes
   const int nblk = (a.R + sw::kBlockCols - 1) / sw::kBlockCols;
   int16_t* mc_row = BlockMax ? nullptr : a.maxcol + size_t(b) * a.R;
-  int32_t* bm_row = BlockMax ? a.blockmax + size_t(b) * nblk : nullptr;
+  int32_t* bm_row =
+      BlockMax ? a.blockmax + size_t(b) * nblk * (Dual ? 2 : 1) : nullptr;
   for (int col = 0; col < a.R; ++col) {
     const int lane = col & 31;
     if (lane == 0) {
@@ -98,10 +121,27 @@ __global__ void sw_forward_kernel(const FwdArgs a) {
       sw::save_best<KT>(r, K);
     }
     if constexpr (BlockMax) {
-      if (col < a.valid_len) bm_run = max(bm_run, colmax);
+      if (col < a.valid_len) {
+        bm_run = max(bm_run, colmax);
+        if constexpr (Dual) {
+          const int KK = KT > 0 ? KT : K;
+#pragma unroll
+          for (int k = 0; k < KK; ++k) {
+            const bool word = KT > 0 ? ((wbits >> k) & 1u) != 0
+                                     : wrow[t * KK + k] != 0;
+            if (word) w_run = max(w_run, r.H(k));
+          }
+        }
+      }
       if ((col & (sw::kBlockCols - 1)) == sw::kBlockCols - 1 ||
           col == a.R - 1) {
-        if (t == 0) bm_row[col / sw::kBlockCols] = bm_run;
+        const int blk = col / sw::kBlockCols;
+        if constexpr (Dual) {
+          const int wmax = __reduce_max_sync(sw::kFull, w_run);
+          if (t == 0) bm_row[nblk + blk] = wmax;
+          w_run = 0;
+        }
+        if (t == 0) bm_row[blk] = bm_run;
         bm_run = 0;
       }
     } else {
@@ -121,25 +161,27 @@ __global__ void sw_forward_kernel(const FwdArgs a) {
   }
 }
 
-template <int KT, bool BlockMax, bool Quirk>
+template <int KT, bool BlockMax, bool Quirk, bool Dual = false>
 int launch_mode(const FwdArgs& a, cudaStream_t stream) {
   int wpb;
   size_t smem;
   sw::launch_shape<KT>(a.n1, a.L, Quirk, &wpb, &smem);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        sw_forward_kernel<KT, BlockMax, Quirk>,
+        sw_forward_kernel<KT, BlockMax, Quirk, Dual>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
     if (e != cudaSuccess) return int(e);
   }
   const int grid = (a.B + wpb - 1) / wpb;
-  sw_forward_kernel<KT, BlockMax, Quirk><<<grid, wpb * 32, smem, stream>>>(
-      a);
+  sw_forward_kernel<KT, BlockMax, Quirk, Dual>
+      <<<grid, wpb * 32, smem, stream>>>(a);
   return int(cudaGetLastError());
 }
 
 template <int KT>
 int launch(const FwdArgs& a, cudaStream_t stream) {
+  if (a.blockmax && a.wmask)
+    return launch_mode<KT, true, false, true>(a, stream);
   if (a.blockmax)
     return a.quirk ? launch_mode<KT, true, true>(a, stream)
                    : launch_mode<KT, true, false>(a, stream);
@@ -157,15 +199,17 @@ int sw_forward_scratch_per_read(int L) {
 }
 
 // Returns the cudaError_t of the launch (0 on success).  Exactly one of
-// maxcol (base mode) and blockmax (blockmax mode, with valid_len) is set.
+// maxcol (base mode) and blockmax (blockmax mode, with valid_len) is set;
+// wmask (non-null: dual mode) needs blockmax and quirk 0.
 int sw_forward_shared(const void* prof, const void* ref, const void* read_len,
                       const void* col_mask, const void* seg_id,
                       const void* seg_start, int B, int n1, int L, int R,
                       int gapO, int gapE, int quirk, void* score,
                       void* end_ref, void* end_read, void* maxcol,
-                      void* blockmax, int valid_len, void* scratch,
-                      void* stream) {
+                      void* blockmax, int valid_len, void* wmask,
+                      void* scratch, void* stream) {
   if (B <= 0) return 0;
+  if (wmask && (!blockmax || quirk)) return int(cudaErrorInvalidValue);
   FwdArgs a;
   a.prof = static_cast<const int8_t*>(prof);
   a.ref = static_cast<const int32_t*>(ref);
@@ -173,6 +217,7 @@ int sw_forward_shared(const void* prof, const void* ref, const void* read_len,
   a.col_mask = static_cast<const uint8_t*>(col_mask);
   a.seg_id = static_cast<const int8_t*>(seg_id);
   a.seg_start = static_cast<const uint8_t*>(seg_start);
+  a.wmask = static_cast<const uint8_t*>(wmask);
   a.B = B;
   a.n1 = n1;
   a.L = L;

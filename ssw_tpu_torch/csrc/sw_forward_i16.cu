@@ -34,6 +34,14 @@
 // halves keep separate block maxima; an odd B's empty high half stores
 // nothing.
 //
+// Dual mode (template flag Dual, blockmax only; the int16 tier of the JAX
+// kernel's dual-tier emission, pallas_sw.py:142-151, :405-412): the block
+// maxima come back (B, 2, ceil(R/256)), channel 0 over col_mask (byte-tier
+// rows), channel 1 over wmask (word-tier rows).  Each thread keeps a packed
+// running max of H over its wmask lanes of both reads (one __vmaxs2 per
+// lane-pair and column) and the warp reduces it once per 256 columns, so
+// each read of the pair keeps its own word channel.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC -o libsw_forward_i16.so sw_forward_i16.cu
 
@@ -65,6 +73,7 @@ struct I16Args {
   const int32_t* ref;       // (R,)
   const int32_t* read_len;  // (B,)
   const uint8_t* col_mask;  // (B, L) bool
+  const uint8_t* wmask;     // (B, L) bool, dual mode: word-tier lanes
   int B, n1, L, R, gapO, gapE;
   int32_t* score;           // (B,)
   int32_t* end_ref;         // (B,)
@@ -204,8 +213,9 @@ __device__ __forceinline__ int end_read_i16(Row& r, int K, int t, int L,
   return cand == L ? rl - 1 : cand;
 }
 
-template <int KT, bool BlockMax>
+template <int KT, bool BlockMax, bool Dual>
 __global__ void sw_forward_i16_kernel(const I16Args a) {
+  static_assert(!Dual || BlockMax, "dual is a blockmax mode");
   extern __shared__ __align__(16) unsigned char smem[];
   const int wpb = blockDim.x >> 5, w = threadIdx.x >> 5, t = threadIdx.x & 31;
   const int pair = blockIdx.x * wpb + w;
@@ -229,13 +239,26 @@ __global__ void sw_forward_i16_kernel(const I16Args a) {
     r.set_mask(k, cma[j] != 0, has_b && cma[L + j] != 0);
   }
 
+  // dual: this thread's word-tier lanes of both reads (bits for the
+  // register variant)
+  const uint8_t* wra = Dual ? a.wmask + size_t(ba) * L : nullptr;
+  unsigned wba = 0u, wbb = 0u;
+  if constexpr (Dual && KT > 0) {
+#pragma unroll
+    for (int k = 0; k < KT; ++k) {
+      wba |= unsigned(wra[t * KT + k] != 0) << k;
+      wbb |= unsigned(has_b && wra[L + t * KT + k] != 0) << k;
+    }
+  }
   int gmax_a = 0, gmax_b = 0, er_a = -1, er_b = -1, code_v = 0;
   unsigned mc_v = 0u;
   unsigned bm_v = 0u;  // blockmax: packed running max of the current block
+  unsigned w_v = 0u;   // dual: packed running max over the wmask lanes
   const int nblk = (a.R + sw::kBlockCols - 1) / sw::kBlockCols;
+  const int stride = Dual ? 2 * nblk : nblk;  // block maxima per read
   int16_t* mca = BlockMax ? nullptr : a.maxcol + size_t(ba) * a.R;
   int16_t* mcb = has_b && !BlockMax ? mca + a.R : nullptr;
-  int32_t* bma = BlockMax ? a.blockmax + size_t(ba) * nblk : nullptr;
+  int32_t* bma = BlockMax ? a.blockmax + size_t(ba) * stride : nullptr;
   for (int col = 0; col < a.R; ++col) {
     const int lane = col & 31;
     if (lane == 0) {
@@ -255,12 +278,32 @@ __global__ void sw_forward_i16_kernel(const I16Args a) {
     }
     // colmax < 2^14 inside the i16_exact bound: no clip to 32767 needed
     if constexpr (BlockMax) {
-      if (col < a.valid_len) bm_v = __vmaxs2(bm_v, cm);  // both >= 0
+      if (col < a.valid_len) {
+        bm_v = __vmaxs2(bm_v, cm);  // both >= 0
+        if constexpr (Dual) {
+#pragma unroll
+          for (int k = 0; k < KK; ++k) {
+            const unsigned wm =
+                KT > 0 ? halves((wba >> k) & 1u, (wbb >> k) & 1u)
+                       : halves(wra[t * KK + k] != 0,
+                                has_b && wra[L + t * KK + k] != 0);
+            w_v = __vmaxs2(w_v, r.H(k) & wm);  // H >= 0: masked lanes read 0
+          }
+        }
+      }
       if ((col & (sw::kBlockCols - 1)) == sw::kBlockCols - 1 ||
           col == a.R - 1) {
         const int blk = col / sw::kBlockCols;
+        if constexpr (Dual) {
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1)
+            w_v = __vmaxs2(w_v, __shfl_xor_sync(sw::kFull, w_v, off));
+          if (t == 2) bma[nblk + blk] = lo16(w_v);
+          if (t == 3 && has_b) bma[stride + nblk + blk] = hi16(w_v);
+          w_v = 0u;
+        }
         if (t == 0) bma[blk] = lo16(bm_v);
-        if (t == 1 && has_b) bma[nblk + blk] = hi16(bm_v);
+        if (t == 1 && has_b) bma[stride + blk] = hi16(bm_v);
         bm_v = 0u;
       }
     } else {
@@ -290,7 +333,7 @@ __global__ void sw_forward_i16_kernel(const I16Args a) {
   }
 }
 
-template <int KT, bool BlockMax>
+template <int KT, bool BlockMax, bool Dual = false>
 int launch_mode(const I16Args& a, cudaStream_t stream) {
   const size_t per_warp = KT > 0 ? size_t(a.n1) * a.L * 4 : 0;
   int wpb = 4;
@@ -298,18 +341,20 @@ int launch_mode(const I16Args& a, cudaStream_t stream) {
   const size_t smem = wpb * per_warp;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        sw_forward_i16_kernel<KT, BlockMax>,
+        sw_forward_i16_kernel<KT, BlockMax, Dual>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
     if (e != cudaSuccess) return int(e);
   }
   const int pairs = (a.B + 1) / 2;
   const int grid = (pairs + wpb - 1) / wpb;
-  sw_forward_i16_kernel<KT, BlockMax><<<grid, wpb * 32, smem, stream>>>(a);
+  sw_forward_i16_kernel<KT, BlockMax, Dual>
+      <<<grid, wpb * 32, smem, stream>>>(a);
   return int(cudaGetLastError());
 }
 
 template <int KT>
 int launch(const I16Args& a, cudaStream_t stream) {
+  if (a.blockmax && a.wmask) return launch_mode<KT, true, true>(a, stream);
   return a.blockmax ? launch_mode<KT, true>(a, stream)
                     : launch_mode<KT, false>(a, stream);
 }
@@ -324,19 +369,22 @@ int sw_forward_i16_scratch_per_pair(int L) {
 }
 
 // Returns the cudaError_t of the launch (0 on success).  Exactly one of
-// maxcol (base mode) and blockmax (blockmax mode, with valid_len) is set.
+// maxcol (base mode) and blockmax (blockmax mode, with valid_len) is set;
+// wmask (non-null: dual mode) needs blockmax.
 int sw_forward_shared_i16(const void* prof, const void* ref,
                           const void* read_len, const void* col_mask, int B,
                           int n1, int L, int R, int gapO, int gapE,
                           void* score, void* end_ref, void* end_read,
                           void* maxcol, void* blockmax, int valid_len,
-                          void* scratch, void* stream) {
+                          void* wmask, void* scratch, void* stream) {
   if (B <= 0) return 0;
+  if (wmask && !blockmax) return int(cudaErrorInvalidValue);
   I16Args a;
   a.prof = static_cast<const int8_t*>(prof);
   a.ref = static_cast<const int32_t*>(ref);
   a.read_len = static_cast<const int32_t*>(read_len);
   a.col_mask = static_cast<const uint8_t*>(col_mask);
+  a.wmask = static_cast<const uint8_t*>(wmask);
   a.B = B;
   a.n1 = n1;
   a.L = L;

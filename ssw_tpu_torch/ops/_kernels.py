@@ -21,7 +21,8 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 _PKG = os.path.dirname(_HERE)
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
-KERNELS = ("sw_forward", "sw_forward_i16", "sw_perread")
+KERNELS = ("sw_forward", "sw_forward_i16", "sw_forward_packed",
+           "sw_perread")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 _lock = threading.Lock()
@@ -32,13 +33,17 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "sw_forward": {
         "sw_forward_shared": [_P] * 6 + [_I] * 7 + [_P] * 5 + [_I]
-                             + [_P] * 2,
+                             + [_P] * 3,
         "sw_forward_scratch_per_read": [_I],
     },
     "sw_forward_i16": {
         "sw_forward_shared_i16": [_P] * 4 + [_I] * 6 + [_P] * 5 + [_I]
-                                 + [_P] * 2,
+                                 + [_P] * 3,
         "sw_forward_i16_scratch_per_pair": [_I],
+    },
+    "sw_forward_packed": {
+        "sw_forward_packed": [_P] * 6 + [_I] * 12 + [_P] * 6,
+        "sw_forward_packed_scratch_per_read": [_I] * 2,
     },
     "sw_perread": {
         "sw_forward_perread": [_P] * 7 + [_I] * 7 + [_P] * 6,

@@ -97,7 +97,9 @@ def pad_reads(reads: list[np.ndarray], L: int, pad_code: int) -> np.ndarray:
     return out
 
 
-# --- lane packing (not used by the port yet) --------------------------------
+# --- lane packing (ops/pack.py; users: pipeline._leaf_start, the packed
+# forward cuda_sw.forward_shared_packed and its plain version
+# scan_sw.forward_shared_ref_packed) -----------------------------------------
 #
 # 200bp reads in an L=256 bucket leave 22% of the lanes as padding.
 # Packing several reads into one kernel row as

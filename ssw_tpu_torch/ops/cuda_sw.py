@@ -1,8 +1,10 @@
 """Wrappers of the hand-written CUDA DP kernels (csrc/sw_forward.cu,
-csrc/sw_forward_i16.cu, csrc/sw_perread.cu).  The two forward kernels have a
-base mode (per-column maxima) and a blockmax mode (per-256-column maxima,
-the streaming suboptimal scan's input); each mode of each kernel has its own
-launch count.
+csrc/sw_forward_i16.cu, csrc/sw_forward_packed.cu, csrc/sw_perread.cu).  The
+two forward kernels have a base mode (per-column maxima), a blockmax mode
+(per-256-column maxima, the streaming suboptimal scan's input) and a dual
+mode (blockmax for both tiers' row masks at once); the packed kernel runs
+lane-packed reads (ops/pack.py) in blockmax or dual mode.  Each mode of each
+kernel has its own launch count.
 
 Each wrapper takes the tensors of its plain twin in ops/scan_sw.py.  A
 tensor on the CPU goes to the plain version; a CUDA tensor goes to the
@@ -17,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ssw_tpu_torch.ops import _kernels, common, scan_sw
+from ssw_tpu_torch.ops import _kernels, common, pack, scan_sw
 
 # int32 operations per lane-cell and column that the recurrence needs, as
 # sw_dp.cuh dp_column issues them (DPX fusions counted as one): h~ (add-max
@@ -36,6 +38,11 @@ OPS_PER_CELL_I16 = OPS_PER_CELL / 2
 # of an int16 warp)
 OPS_PER_COLUMN_BLOCKMAX = 1
 OPS_PER_COLUMN_BLOCKMAX_I16 = 0.5
+# dual mode: the word channel's running max, one op per word-tier lane-cell
+# (a packed op for the int16 tier's two lane-cells); its warp reduce once
+# per 256 columns is not counted
+OPS_PER_WORD_CELL_DUAL = 1
+OPS_PER_WORD_CELL_DUAL_I16 = 0.5
 
 # the int16 tier is exact while every cell and intermediate stays below
 # this bound (the JAX package's pallas_sw.I16_HEADROOM)
@@ -44,6 +51,8 @@ I16_HEADROOM = 2 ** 14
 # kernel launches per wrapper, counted right after each successful launch
 LAUNCHES = {"forward_shared": 0, "forward_shared_i16": 0,
             "forward_shared_blockmax": 0, "forward_shared_i16_blockmax": 0,
+            "forward_shared_dual": 0, "forward_shared_i16_dual": 0,
+            "forward_shared_packed": 0, "forward_shared_packed_dual": 0,
             "forward_perread": 0}
 
 
@@ -101,19 +110,26 @@ def _ptr(x):
 
 
 def _launch_shared(profile, ref, read_len, col_mask, seg_id, seg_start,
-                   gapO, gapE, quirk, i16, blockmax=False, valid_len=None):
+                   gapO, gapE, quirk, i16, blockmax=False, valid_len=None,
+                   wmask=None):
     """One launch of the int32 kernel, or of the int16 tier (quirk off), in
-    base or blockmax mode; not counted."""
+    base, blockmax or dual (wmask) mode; not counted."""
     B, n1, L, dev = _geometry_checks(profile, read_len, col_mask, seg_id,
                                      seg_start)
     R = int(ref.shape[0])
     _check("ref", ref, torch.int32, (R,), dev)
+    if wmask is not None:
+        if quirk or not blockmax:
+            raise ValueError("the dual tier is a blockmax mode with the "
+                             "quirk off")
+        _check("wmask", wmask, torch.bool, (B, L), dev)
     score = torch.empty(B, dtype=torch.int32, device=dev)
     end_ref = torch.empty(B, dtype=torch.int32, device=dev)
     end_read = torch.empty(B, dtype=torch.int32, device=dev)
     if blockmax:
         vl = R if valid_len is None else min(int(valid_len), R)
-        maxcol = torch.empty((B, (R + scan_sw.BM - 1) // scan_sw.BM),
+        nblk = (R + scan_sw.BM - 1) // scan_sw.BM
+        maxcol = torch.empty((B, 2, nblk) if wmask is not None else (B, nblk),
                              dtype=torch.int32, device=dev)
         mode = (None, maxcol.data_ptr(), vl)
     else:
@@ -130,7 +146,7 @@ def _launch_shared(profile, ref, read_len, col_mask, seg_id, seg_start,
             rc = lib.sw_forward_shared_i16(
                 profile.data_ptr(), ref.data_ptr(), read_len.data_ptr(),
                 col_mask.data_ptr(), B, n1, L, R, int(gapO), int(gapE),
-                *outs, _ptr(scratch), stream)
+                *outs, _ptr(wmask), _ptr(scratch), stream)
         else:
             lib = _kernels.load("sw_forward")
             scratch = _scratch(lib, "sw_forward_scratch_per_read", B, L,
@@ -139,8 +155,8 @@ def _launch_shared(profile, ref, read_len, col_mask, seg_id, seg_start,
                 profile.data_ptr(), ref.data_ptr(), read_len.data_ptr(),
                 col_mask.data_ptr(), seg_id.data_ptr(), seg_start.data_ptr(),
                 B, n1, L, R, int(gapO), int(gapE), int(bool(quirk)), *outs,
-                _ptr(scratch), stream)
-    _raise_on(lib, rc, shared_kernel_name(i16, blockmax))
+                _ptr(wmask), _ptr(scratch), stream)
+    _raise_on(lib, rc, shared_kernel_name(i16, blockmax, wmask is not None))
     return score, end_ref, end_read, maxcol
 
 
@@ -176,16 +192,16 @@ def _i16_parity(dev):
     _I16_CHECKED.add(key)
 
 
-def shared_kernel_name(i16: bool, blockmax: bool) -> str:
+def shared_kernel_name(i16: bool, blockmax: bool, dual: bool = False) -> str:
     """The LAUNCHES key of a forward_shared launch."""
     return ("forward_shared" + ("_i16" if i16 else "")
-            + ("_blockmax" if blockmax else ""))
+            + ("_dual" if dual else "_blockmax" if blockmax else ""))
 
 
 def forward_shared(profile, ref, read_len, col_mask, seg_id, seg_start,
                    gapO: int, gapE: int, quirk: bool = True,
                    max_sub: int | None = None, blockmax: bool = False,
-                   valid_len: int | None = None):
+                   valid_len: int | None = None, wmask=None):
     """Batched forward DP against one shared target.  Returns (score,
     end_ref, end_read (B,) int32, maxcol (B, R) int16 in [0, 32767]).
 
@@ -197,20 +213,101 @@ def forward_shared(profile, ref, read_len, col_mask, seg_id, seg_start,
     blockmax: the last output is (B, ceil(R/256)) int32 per-block maxima
     over the columns < valid_len (default R), >= 0 and not clamped, and no
     (B, R) buffer is allocated; score/end_ref/end_read are unchanged
-    (counted as forward_shared[_i16]_blockmax)."""
+    (counted as forward_shared[_i16]_blockmax).
+
+    wmask (B, L) bool, with blockmax and the quirk off: the dual tier.
+    col_mask holds the byte tier's rows and wmask the word tier's, and the
+    last output is (B, 2, ceil(R/256)): both tiers' block maxima from one
+    pass (counted as forward_shared[_i16]_dual)."""
     if profile.device.type == "cpu":
         return scan_sw.forward_shared_ref(profile, ref, read_len, col_mask,
                                           seg_id, seg_start, gapO, gapE,
                                           quirk, blockmax=blockmax,
-                                          valid_len=valid_len)
+                                          valid_len=valid_len, wmask=wmask)
     i16 = i16_exact(int(profile.shape[2]), gapO, gapE, max_sub, quirk)
     if i16:
         _i16_parity(profile.device)
     out = _launch_shared(profile, ref, read_len, col_mask, seg_id,
                          seg_start, gapO, gapE, quirk, i16, blockmax,
-                         valid_len)
-    LAUNCHES[shared_kernel_name(i16, blockmax)] += 1
+                         valid_len, wmask)
+    LAUNCHES[shared_kernel_name(i16, blockmax, wmask is not None)] += 1
     return out
+
+
+# register variants of the warp's lanes per thread (csrc/sw_dp.cuh reg_k)
+_REG_K = (2, 4, 6, 8, 10, 12, 14, 16, 20, 24, 28, 32)
+
+
+def packed_lanes(longest: int) -> int:
+    """Lanes per warp of the packed kernel: 32*K for the smallest register
+    variant K that holds the longest slot (32*ceil past 1024 lanes)."""
+    k = max(1, -(-int(longest) // 32))
+    return 32 * next((r for r in _REG_K if r >= k), k)
+
+
+def forward_shared_packed(profile, ref, so, sl, rl_s, flat_idx, gapO: int,
+                          gapE: int, max_sub: int | None = None,
+                          valid_len: int | None = None, quirk: bool = False,
+                          word: bool = False, dual: bool = False,
+                          slot_max: int | None = None):
+    """Forward DP of lane-packed reads (ops/pack.py) against one shared
+    target, always int32, in blockmax mode.  profile (n_rows, n+1, W) int8
+    over the packed codes, ref (R,) int32, so/sl/rl_s (n_rows, S) int32
+    slot tables, flat_idx (B,) int32 = row * S + slot.  Returns per read
+    (score, end_ref, end_read) (B,) int32 and block maxima over the columns
+    < valid_len (at most R) (B, ceil(R/256)) int32, or (B, 2, ceil(R/256))
+    with dual (byte tier, then word); only those columns feed the best hit.
+    quirk: the lane-block E quirk (word: its 8-block geometry), within the
+    QBUMP span guard (pack.check_quirk_span raises outside it).  slot_max:
+    the longest slot, max(sl), when the caller knows it (else read from sl,
+    a device sync).  Counted as forward_shared_packed[_dual]."""
+    if profile.device.type == "cpu":
+        return scan_sw.forward_shared_ref_packed(
+            profile, ref, so, sl, rl_s, flat_idx, gapO, gapE,
+            max_sub=max_sub, valid_len=valid_len, quirk=quirk, word=word,
+            dual=dual)
+    if dual and quirk:
+        raise ValueError("the dual tier needs the quirk off")
+    if slot_max is None:
+        slot_max = pack.slot_max(sl)
+    if quirk:
+        pack.check_quirk_span(slot_max, max_sub, gapO, gapE)
+    dev = profile.device
+    if dev.type != "cuda":
+        raise ValueError(f"CUDA kernel called with tensors on {dev}")
+    n_rows, n1, W = profile.shape
+    S = int(so.shape[1])
+    B = int(flat_idx.shape[0])
+    R = int(ref.shape[0])
+    _check("profile", profile, torch.int8, (n_rows, n1, W), dev)
+    _check("ref", ref, torch.int32, (R,), dev)
+    for name, x in (("so", so), ("sl", sl), ("rl_s", rl_s)):
+        _check(name, x, torch.int32, (n_rows, S), dev)
+    _check("flat_idx", flat_idx, torch.int32, (B,), dev)
+    Lw = packed_lanes(slot_max)
+    vl = R if valid_len is None else min(int(valid_len), R)
+    nblk = (R + scan_sw.BM - 1) // scan_sw.BM
+    score = torch.empty(B, dtype=torch.int32, device=dev)
+    end_ref = torch.empty(B, dtype=torch.int32, device=dev)
+    end_read = torch.empty(B, dtype=torch.int32, device=dev)
+    maxcol = torch.empty((B, 2, nblk) if dual else (B, nblk),
+                         dtype=torch.int32, device=dev)
+    lib = _kernels.load("sw_forward_packed")
+    n = lib.sw_forward_packed_scratch_per_read(Lw, n1)
+    scratch = (torch.empty((B, n), dtype=torch.int32, device=dev)
+               if n else None)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.sw_forward_packed(
+            profile.data_ptr(), ref.data_ptr(), so.data_ptr(), sl.data_ptr(),
+            rl_s.data_ptr(), flat_idx.data_ptr(), B, n1, W, S, Lw, R, vl,
+            int(gapO), int(gapE), int(bool(quirk)), 8 if word else 16,
+            int(bool(dual)), score.data_ptr(), end_ref.data_ptr(),
+            end_read.data_ptr(), maxcol.data_ptr(), _ptr(scratch), stream)
+    name = "forward_shared_packed" + ("_dual" if dual else "")
+    _raise_on(lib, rc, name)
+    LAUNCHES[name] += 1
+    return score, end_ref, end_read, maxcol
 
 
 def forward_perread(profile, refw, read_len, col_mask, seg_id, seg_start,

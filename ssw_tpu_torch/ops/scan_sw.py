@@ -20,6 +20,8 @@ from __future__ import annotations
 
 import torch
 
+from ssw_tpu_torch.ops import pack
+
 NEG = -(2 ** 28)
 SEG_BUMP = 2 ** 21
 BM = 256  # block width of the per-block maxima (blockmax_reduce)
@@ -94,7 +96,8 @@ def _finalize(state, read_len, L):
 
 def forward_shared_ref(profile, ref, read_len, col_mask, seg_id, seg_start,
                        gapO: int, gapE: int, quirk: bool = True,
-                       blockmax: bool = False, valid_len: int | None = None):
+                       blockmax: bool = False, valid_len: int | None = None,
+                       wmask=None):
     """Forward pass of a read batch against one shared target.
 
     Returns (score (B,), end_ref (B,), end_read (B,), max_column (B, R)
@@ -104,9 +107,20 @@ def forward_shared_ref(profile, ref, read_len, col_mask, seg_id, seg_start,
     column maxima over the columns i < valid_len (default R): (B,
     ceil(R/BM)) int32, zero-floored and NOT clamped (the streaming
     composition clamps).  The other outputs are unchanged: every column
-    still feeds the best hit."""
+    still feeds the best hit.
+
+    wmask (B, L) bool, blockmax with the quirk off only (the dual tier):
+    col_mask is then the byte-tier mask and wmask the word tier's (a subset
+    of it), and the block maxima come back (B, 2, ceil(R/BM)): channel 0
+    over col_mask lanes, channel 1 over wmask lanes.  With the quirk off the
+    two tiers differ only in which pad rows feed the column maxima, so one
+    pass answers both."""
     B, _, L = profile.shape
     dev = profile.device
+    dual = wmask is not None
+    if dual and (quirk or not blockmax):
+        raise ValueError("the dual tier is a blockmax mode with the quirk "
+                         "off")
     prof_t = profile.to(_I32).permute(1, 0, 2).contiguous()  # (n+1, B, L)
     decay, seg_bias, seg_reset = _geometry(seg_id, seg_start, L, gapE, dev)
     col_mask = col_mask.to(torch.bool)
@@ -114,14 +128,23 @@ def forward_shared_ref(profile, ref, read_len, col_mask, seg_id, seg_start,
     codes = ref.tolist()
     state = _init_state(B, L, dev)
     mc = torch.empty((R, B), dtype=_I32, device=dev)
+    mcw = None
+    if dual:
+        wmask = wmask.to(torch.bool)
+        mcw = torch.empty((R, B), dtype=_I32, device=dev)
     for j in range(R):
         state, mc[j] = _column_update(prof_t[codes[j]], state, gapO, gapE,
                                       decay, seg_bias, seg_reset, col_mask,
                                       j, quirk)
+        if dual:
+            mcw[j] = torch.where(wmask, state[0], 0).amax(dim=1)
     score, end_ref, end_read = _finalize(state, read_len, L)
     if blockmax:
-        return score, end_ref, end_read, blockmax_reduce(
-            mc.t(), R if valid_len is None else int(valid_len))
+        vl = R if valid_len is None else int(valid_len)
+        bm = blockmax_reduce(mc.t(), vl)
+        if dual:
+            bm = torch.stack([bm, blockmax_reduce(mcw.t(), vl)], dim=1)
+        return score, end_ref, end_read, bm
     # clamp at the reference word kernel's saturation point before the
     # narrowing (ref: _mm_adds_epi16 saturates at 32767)
     return (score, end_ref, end_read,
@@ -165,6 +188,99 @@ def forward_perread_ref(profile, refw, read_len, col_mask, seg_id, seg_start,
     if emit_maxcol:
         return out + (mc.t().contiguous(),)
     return out
+
+
+def forward_shared_ref_packed(profile, ref, so, sl, rl_s, flat_idx,
+                              gapO: int, gapE: int,
+                              max_sub: int | None = None,
+                              valid_len: int | None = None,
+                              quirk: bool = False, word: bool = False,
+                              dual: bool = False):
+    """Forward pass of LANE-PACKED rows (ops/pack.py): the plain version of
+    the JAX kernel's packed mode, run on the packed layout itself.
+
+    profile (n_rows, n+1, W) over the packed codes (common.pack_codes);
+    so/sl/rl_s (n_rows, S) slot tables (common.pack_tables); flat_idx (B,)
+    = row * S + slot of each read.  Returns per read (score, end_ref,
+    end_read) (B,) int32 and block maxima over the columns < valid_len
+    (default and at most R): (B, ceil(R/BM)) int32, or (B, 2, ceil(R/BM))
+    with dual (byte-tier slot lanes, then word-tier lanes: pack_geometry's
+    wcol).  Only columns < valid_len feed the best hit (the JAX kernel's
+    `own` gate).  Per read the outputs equal forward_shared_ref's blockmax
+    mode on the unpacked layout.
+
+    Each slot's lanes see exactly an unpacked row's DP: the slot bias
+    (slot_id * PACK_BUMP) rides dmg and its removal gmd, so carries across a
+    slot boundary land ~PACK_BUMP below any value of the slot they enter;
+    h_diag is cut and F poisoned (gmd = NEG) at slot starts; the decay
+    restarts at lane_off.  The quirk's lane-block scan adds qseg * QBUMP
+    under the slot bias (word: the 8-block geometry), exact while
+    check_quirk_span holds."""
+    Br, n1, W = profile.shape
+    S = int(so.shape[1])
+    dev = profile.device
+    if dual and quirk:
+        raise ValueError("the dual tier needs the quirk off")
+    if quirk:
+        pack.check_quirk_span(pack.slot_max(sl), max_sub, gapO, gapE)
+    col_mask, slot_id, slot_start, lane_off, qseg, wcol = pack.pack_geometry(
+        so, sl, rl_s, W, 8 if word else 16)
+    seg_bias = slot_id * pack.PACK_BUMP
+    slot_reset = slot_start | (_shift_right(slot_id, -1) != slot_id)
+    decay = lane_off * gapE
+    dmg = decay - gapO + seg_bias
+    gmd = torch.where(slot_reset, NEG,
+                      gapE - decay - _shift_right(seg_bias, 0))
+    if quirk:
+        qb = qseg * pack.QBUMP
+        rst = slot_reset | (_shift_right(qb, -1) != qb)
+        decay_q = gapE - gmd
+    R = int(ref.shape[0])
+    vl = R if valid_len is None else min(int(valid_len), R)
+    nblk = (R + BM - 1) // BM
+    S2 = 2 * S if dual else S
+    prof_t = profile.to(_I32).permute(1, 0, 2).contiguous()  # (n+1, Br, W)
+    codes = ref.tolist()
+    H = torch.zeros((Br, W), dtype=_I32, device=dev)
+    E = torch.zeros_like(H)
+    bv = torch.zeros_like(H)
+    bc = torch.full_like(H, -1)
+    run = torch.full_like(H, NEG)  # per-lane max of the current block
+    maxcol = torch.zeros((Br, nblk, S2), dtype=_I32, device=dev)
+    ids = slot_id.long()
+
+    def per_slot(x):
+        out = torch.full((Br, S), NEG, dtype=_I32, device=dev)
+        return out.scatter_reduce(1, ids, x, "amax").clamp_min(0)
+
+    for j in range(vl):
+        h_tilde = torch.maximum(
+            torch.where(slot_reset, 0, _shift_right(H, 0)) + prof_t[codes[j]],
+            E)
+        c = h_tilde + dmg
+        F = _shift_right(torch.cummax(c, dim=1).values, NEG) + gmd
+        H = torch.maximum(h_tilde, F)
+        if quirk:
+            cs = torch.cummax(c + qb, dim=1).values - qb
+            F_loc = _shift_right(cs, NEG) - decay_q + gapE
+            F_loc = torch.where(rst, 0, F_loc.clamp_min(0))
+            h_fp = torch.maximum(h_tilde, F_loc)
+        else:
+            h_fp = H
+        E = torch.maximum(E - gapE, h_fp - gapO).clamp_min(0)
+        Hv = torch.where(col_mask, H, NEG)
+        imp = Hv > bv
+        bv = torch.where(imp, Hv, bv)
+        bc = torch.where(imp, j, bc)
+        run = torch.maximum(run, Hv)
+        if j % BM == BM - 1 or j == vl - 1:
+            maxcol[:, j // BM, :S] = per_slot(run)
+            if dual:
+                maxcol[:, j // BM, S:] = per_slot(torch.where(wcol, run, NEG))
+            run.fill_(NEG)
+    tables = pack.pack_reconstruct(bv, bc, maxcol.reshape(Br, nblk * S2),
+                                   slot_id, lane_off, rl_s.to(dev), S, dual)
+    return pack.gather_reads(*tables, flat_idx.to(dev), S, dual)
 
 
 def blockmax_reduce(max_column, ref_len: int):

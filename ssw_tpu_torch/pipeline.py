@@ -10,7 +10,10 @@ against one target:
   3. suboptimal-score scan outside the maskLen window (tier-aware edges):
      over the (B, R) per-column maxima, or, when streaming (see
      _use_streaming), from per-256-column block maxima and two bounded
-     per-read window re-runs (ops/subopt.py), with no (B, R) buffer
+     per-read window re-runs (ops/subopt.py), with no (B, R) buffer.  A
+     streaming leaf may pack its reads (PACK, ops/pack.py) and take the
+     dual tier (DUAL), whose one pass emits both tiers' block maxima and
+     replaces step 2's re-run
   4. reverse pass on reversed read prefixes vs per-read reference windows to
      locate begin positions (ref: src/ssw.c:918-930); the window length is a
      provable bound on the alignment's reference span, so the batched
@@ -35,7 +38,7 @@ import torch
 
 from ssw_tpu_torch.core import oracle
 from ssw_tpu_torch.core.encoding import matrix_bias
-from ssw_tpu_torch.ops import common, cuda_sw, scan_sw, subopt
+from ssw_tpu_torch.ops import common, cuda_sw, pack, scan_sw, subopt
 
 # -- observability hook (profiling.py) --------------------------------------
 # an active GcupsCounter collects per-phase seconds + useful-cell counts
@@ -284,6 +287,87 @@ def _prep_device(reads_i8, read_len, mat_ext, col_word, L: int,
     return _prep_core(reads_i8, read_len, mat_ext, col_word, seg_rows, L)
 
 
+# Lane packing (ops/pack.py) on the streaming path: several reads per DP
+# row, each in a slot of its tier-padded length.  PACK forces it: None
+# applies _pack_rule (the H100's), True the JAX package's planner
+# _plan_pack (it may still find no plan worth making), False never packs;
+# the counterpart of the JAX package's SSW_TPU_PACK.  PACK_L pins the
+# planner's row width (0: sweep PACK_WIDTHS), the counterpart of
+# SSW_TPU_PACK_L.  Outputs do not depend on either.
+PACK: bool | None = None
+PACK_L = 0
+PACK_WIDTHS = (1024, 2048, 4096)
+
+# The dual tier on the streaming path: one forward pass with byte-tier row
+# masks emits both tiers' block maxima, so no read re-runs to fix them.
+# None applies the JAX package's rule (a streaming leaf with the quirk off
+# where some read might overflow the byte tier); False never takes it (the
+# re-run route of the JAX package's scan backend).  Outputs do not depend
+# on it.
+DUAL: bool | None = None
+
+
+def _slot_len(read_len, col_word):
+    """Each read's slot length: its length padded to the tier's stripe (8
+    lanes word, 16 byte)."""
+    return np.where(col_word, (read_len + 7) // 8 * 8,
+                    (read_len + 15) // 16 * 16).astype(np.int32)
+
+
+def _plan_pack(read_len, col_word, Bp: int, L: int):
+    """The JAX package's planner: a pack plan when the packed layout's lane
+    utilisation beats the unpacked one by more than its TPU kernel's op
+    overhead (+1 of ~32 vector ops per column for the slot-start h_diag
+    cut, S/256-amortised slot reduces, a flat 2 % for the per-slot
+    reconstruction), at the best of PACK_WIDTHS (or PACK_L); else None."""
+    slot_len = _slot_len(read_len, col_word)
+    best, best_eff = None, 0.0
+    for W in (PACK_L,) if PACK_L else PACK_WIDTHS:
+        if int(slot_len.max()) > W // 2:
+            continue
+        plan = common.pack_plan(slot_len, W)
+        overhead = (33.0 + plan.S * 5.0 / 256.0) / 32.0 + 0.02
+        eff = plan.util / overhead
+        if eff > best_eff:
+            best, best_eff = plan, eff
+    unpacked_util = float(slot_len.sum()) / max(Bp * L, 1)
+    if best is None or best_eff <= unpacked_util:
+        return None
+    return best
+
+
+def _pack_rule(read_len, col_word, Bp: int, L: int):
+    """PACK = None on the H100: pack every streaming leaf, at the narrowest
+    of PACK_WIDTHS (or PACK_L) that holds two of its longest slots.
+
+    The packed kernel runs one warp per slot (csrc/sw_forward_packed.cu),
+    so lane utilisation, which the JAX planner weighs, costs nothing here;
+    what differs is that a packed read runs the int32 kernel at its slot's
+    width and stops at the target's last real column.  In turns on the
+    same reads (chip_smoke.py phase 6, NVIDIA H100 80GB HBM3, 700 W), the
+    packed leaf took 257.8 ms against 294.7 ms for the unpacked int16
+    blockmax leaf (config 4: 1024 x 100 bp, 2^20 columns) and 1495.4 ms
+    against 1841.8 ms for the unpacked int16 dual leaf (the Ion Torrent
+    L = 192 group: 293 reads, 5,242,880 columns); config 4 streaming took
+    4.851 s packed against 5.353 and 5.281 s unpacked (PERF.md)."""
+    slot_len = _slot_len(read_len, col_word)
+    for W in (PACK_L,) if PACK_L else PACK_WIDTHS:
+        if int(slot_len.max()) <= W // 2:
+            return common.pack_plan(slot_len, W)
+    return None
+
+
+def _word_mask(read_len, L: int):
+    """Word-tier row validity (B, L) bool (8-lane stripe padding), the
+    dual tier's wmask; col_mask then carries the byte-tier superset."""
+    j = torch.arange(L, dtype=torch.int32, device=read_len.device)[None, :]
+    return j < (read_len[:, None] + 7) // 8 * 8
+
+
+def _prep_packed(codes, mat_ext):
+    """Packed profile (n_rows, n+1, W) int8 on the device from the packed
+    read codes (n_rows, W) int8."""
+    return mat_ext[:, codes.long()].permute(1, 0, 2).contiguous()
 
 
 def needs_quirk(mat: np.ndarray, gapE: int) -> bool:
@@ -473,7 +557,7 @@ class _LeafState:
     __slots__ = (
         "req", "dev", "streaming", "B", "n", "bias", "ref_len", "mask_len",
         "read_len", "L", "mat_ext_d", "reads_d", "rl_d", "quirk", "max_sub",
-        "word_tier", "might", "ref_codes", "ref_ext", "D", "Wb", "Wb2",
+        "word_tier", "might", "dual", "ref_codes", "ref_ext", "D", "Wb", "Wb2",
         "fwd_d", "sub_d", "bm_d",
         "score", "end_ref", "end_read", "score2", "ref_end2", "word",
         "null_mask", "fin")
@@ -543,8 +627,8 @@ def _leaf_start(req: BatchRequest, dev, streaming: bool):
         st.ref_codes = _device_ref(req.ref, n, Rp, dev)
     st.mat_ext_d = _to(dev, common.extend_matrix(req.mat), torch.int8)
     # one upload of the read codes serves forward, rerun and reverse passes
-    st.reads_d = _to(dev, common.pad_reads(req.reads, L, pad_code=n),
-                     torch.int8)
+    reads_padded = common.pad_reads(req.reads, L, pad_code=n)
+    st.reads_d = _to(dev, reads_padded, torch.int8)
     st.rl_d = _to(dev, read_len)
     # speculative tier masks: when the quirk is off, the tiers differ ONLY
     # in col_mask (rows padded to 16 vs 8 per lane block; byte pad rows
@@ -558,11 +642,48 @@ def _leaf_start(req: BatchRequest, dev, streaming: bool):
     if req.score_size == 2 and not quirk:
         might = read_len.astype(np.int64) * max_sub + st.bias >= 255
     st.might = might
-    col_word = np.full(B, word_tier) | might
+    # dual tier (streaming, quirk off): one pass with byte-tier row masks
+    # emits both tiers' block maxima, and mid selects each read's final
+    # tier's channel instead of re-running might-but-didn't reads
+    # (might is all False with the quirk or a word-tier request)
+    dual = st.dual = bool(streaming and DUAL is not False and might.any())
+    col_word = np.zeros(B, bool) if dual else np.full(B, word_tier) | might
     if _counter is not None:
         _counter.add_pairs(read_len, ref_len)
-    score_d, er_d, ed_d, mc_d = _forward(st, st.reads_d, st.rl_d, col_word,
-                                         word_tier)
+    plan = None
+    if streaming and PACK is not False:
+        # plan as the JAX package's Pallas path does, on the batch padded
+        # to a multiple of 64 reads with copies of read 0, so that PACK =
+        # True packs what it packs; the copies' slots are never launched
+        keep = np.concatenate([np.arange(B),
+                               np.zeros(common.round_up(B, 64) - B, np.int64)])
+        plan = (_pack_rule if PACK is None else _plan_pack)(
+            read_len[keep], col_word[keep], len(keep), L)
+        if plan is not None and quirk and not pack.quirk_span_ok(
+                int(plan.slot_len.max()), max_sub, req.gapO, req.gapE):
+            plan = None  # the quirk's sub-slot block bias would not be exact
+    if plan is not None:
+        so, sl, rl_s = common.pack_tables(plan, read_len[keep])
+        pprof = _prep_packed(
+            _to(dev, common.pack_codes(plan, reads_padded[keep], n),
+                torch.int8), st.mat_ext_d)
+        score_d, er_d, ed_d, mc_d = cuda_sw.forward_shared_packed(
+            pprof, st.ref_codes, _to(dev, so), _to(dev, sl), _to(dev, rl_s),
+            _to(dev, (plan.row * plan.S + plan.slot)[:B].astype(np.int32)),
+            req.gapO, req.gapE, max_sub=max_sub, valid_len=ref_len,
+            quirk=quirk, word=bool(word_tier), dual=dual,
+            slot_max=int(plan.slot_len.max()))
+    elif dual:
+        profile, cm_d, seg_d, ss_d = _prep_device(
+            st.reads_d, st.rl_d, st.mat_ext_d, _to(dev, col_word), L,
+            word_tier)
+        score_d, er_d, ed_d, mc_d = cuda_sw.forward_shared(
+            profile, st.ref_codes, st.rl_d, cm_d, seg_d, ss_d, req.gapO,
+            req.gapE, quirk, max_sub=max_sub, blockmax=True,
+            valid_len=ref_len, wmask=_word_mask(st.rl_d, L))
+    else:
+        score_d, er_d, ed_d, mc_d = _forward(st, st.reads_d, st.rl_d,
+                                             col_word, word_tier)
     st.fwd_d = torch.stack([score_d, er_d, ed_d])
     if streaming:
         st.bm_d, st.sub_d = mc_d, None  # (B, nblk) block maxima, for mid
@@ -601,8 +722,12 @@ def _leaf_mid(st: _LeafState):
         # re-run to fix maxColumn (score/ends are already exact):
         #   quirk on  -> word-tier reads re-run with word geometry (the
         #                quirk makes the whole DP tier-dependent)
-        #   quirk off -> might-but-didn't reads re-run with byte rows
-        rerun = need_word if st.quirk else (st.might & ~need_word)
+        #   quirk off -> might-but-didn't reads re-run with byte rows,
+        #                unless the dual tier emitted both tiers' maxima
+        if st.dual:
+            rerun = np.zeros(B, dtype=bool)
+        else:
+            rerun = need_word if st.quirk else (st.might & ~need_word)
         rerun_word = bool(st.quirk)
         if rerun.any():
             idx = np.nonzero(rerun)[0]
@@ -643,6 +768,11 @@ def _leaf_mid(st: _LeafState):
     score = np.where(word, np.minimum(score, 32767), score)
     if st.streaming:
         with _phase("suboptimal"):
+            if st.dual:
+                # (B, 2, nblk): each read's final tier's channel
+                bm = st.bm_d
+                st.bm_d = torch.where(_to(st.dev, word)[:, None], bm[:, 1],
+                                      bm[:, 0])
             score2, ref_end2 = _second_best_streaming(st, end_ref, word)
 
     st.score, st.end_ref, st.end_read = score, end_ref, end_read

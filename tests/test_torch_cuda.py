@@ -160,8 +160,9 @@ def test_pipeline_on_card_equals_cpu(card):
 
 
 def test_streaming_pipeline_on_card_equals_cpu(card, monkeypatch):
-    """The streaming suboptimal path on the card (blockmax kernels + window
-    re-runs) against the non-streaming path on the CPU."""
+    """The streaming suboptimal path on the card (unpacked: the blockmax
+    kernels in their dual mode + window re-runs) against the non-streaming
+    path on the CPU."""
     rng = np.random.default_rng(12)
     unit = rng.integers(0, 4, 97).astype(np.int8)
     ref = np.concatenate([np.tile(unit, 12),
@@ -179,11 +180,129 @@ def test_streaming_pipeline_on_card_equals_cpu(card, monkeypatch):
                                 mask_len=[max(len(r) // 2, 15)
                                           for r in reads])
     monkeypatch.setattr(pipeline, "STREAM_SUBOPT", True)
+    monkeypatch.setattr(pipeline, "PACK", False)
     cuda_sw.reset_launches()
     got = pipeline.align_batch(req)
     counts = cuda_sw.launch_counts()
-    assert counts["forward_shared_i16_blockmax"] > 0
+    # reads of 127 bp and more might overflow the byte tier: the dual tier
+    assert counts["forward_shared_i16_dual"] > 0
     assert counts["forward_shared_i16"] == counts["forward_shared"] == 0
     monkeypatch.setattr(pipeline, "STREAM_SUBOPT", False)
+    want = pipeline.align_batch(req, device="cpu")
+    assert [vars(a) for a in got] == [vars(b) for b in want]
+
+
+def _packed_inputs(dev, lens, W, R, vl, mat, seed, word_rows=None):
+    """Reads of the given lengths packed at W lanes, and unpacked."""
+    rng = np.random.default_rng(seed)
+    n = mat.shape[0]
+    ref = np.full(R, n, np.int32)
+    ref[:vl] = rng.integers(0, n - 1, vl)
+    reads = []
+    for b, ln in enumerate(lens):
+        s = int(rng.integers(0, max(vl - ln, 1)))
+        reads.append(ref[s:s + ln].copy() if b % 2 and ln < vl else
+                     rng.integers(0, n - 1, ln).astype(np.int32))
+    read_len = np.asarray(lens, np.int32)
+    word_rows = (np.zeros(len(lens), bool) if word_rows is None
+                 else word_rows)
+    L = common.bucket_size(common.pad_total(int(read_len.max()), False), 64)
+    rp = common.pad_reads(reads, L, n)
+    slot_len = np.where(word_rows, (read_len + 7) // 8 * 8,
+                        (read_len + 15) // 16 * 16).astype(np.int32)
+    plan = common.pack_plan(slot_len, W)
+    so, sl, rl_s = common.pack_tables(plan, read_len)
+    mat_ext = common.extend_matrix(mat)
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a)).to(dev)
+    packed = (t(common.build_profile(common.pack_codes(plan, rp, n), None,
+                                     mat_ext)), t(ref), t(so), t(sl),
+              t(rl_s), t((plan.row * plan.S + plan.slot).astype(np.int32)))
+    gb = common.batch_geometry(read_len, L, word=False)
+    gw = common.batch_geometry(read_len, L, word=True)
+    seg = gw if word_rows.all() else gb
+    unpacked = (t(common.build_profile(rp, read_len, mat_ext)), t(ref),
+                t(read_len),
+                t(np.where(word_rows[:, None], gw.col_mask, gb.col_mask)),
+                t(seg.seg_id), t(seg.seg_start))
+    return packed, unpacked, t(gw.col_mask)
+
+
+@pytest.mark.parametrize("W,lens,mat,gapO,quirk,word,dual", [
+    (1024, list(range(20, 221, 5)), dna_matrix(2, 2), 3, False, False,
+     False),
+    (1024, list(range(20, 221, 5)), dna_matrix(2, 2), 3, False, False, True),
+    (512, list(range(20, 200, 9)), dna_matrix(2, 4), 3, True, True, False),
+    (4096, [1100, 1300, 1499, 0, 1], dna_matrix(2, 2), 3, False, False,
+     True),
+])
+def test_forward_shared_packed_kernel_equals_plain(card, W, lens, mat, gapO,
+                                                   quirk, word, dual):
+    """The packed kernel (one warp per slot of the packed rows) against its
+    plain version, which runs the packed rows, and against the unpacked
+    blockmax kernel on the same reads (int32)."""
+    packed, unpacked, wmask = _packed_inputs(
+        card, lens, W, 768, 700, mat, seed=W,
+        word_rows=np.full(len(lens), word))
+    kw = dict(max_sub=int(np.abs(mat).max()), valid_len=700, quirk=quirk,
+              word=word, dual=dual)
+    name = "forward_shared_packed" + ("_dual" if dual else "")
+    before = cuda_sw.launch_counts()[name]
+    got = cuda_sw.forward_shared_packed(*packed, gapO, 1, **kw)
+    assert cuda_sw.launch_counts()[name] == before + 1
+    _equal(got, scan_sw.forward_shared_ref_packed(*packed, gapO, 1, **kw))
+    unp = cuda_sw.forward_shared(*unpacked, gapO, 1, quirk, blockmax=True,
+                                 valid_len=700,
+                                 wmask=wmask if dual else None)
+    _equal(got, unp)
+
+
+@pytest.mark.parametrize("L,B,max_sub", [(256, 37, 2), (256, 37, None),
+                                         (1088, 9, 2), (1088, 9, None)])
+def test_forward_shared_dual_kernel_equals_plain(card, L, B, max_sub):
+    """The dual mode of both forward tiers (register and global-row
+    variants, odd B): both tiers' block maxima from one pass, the word
+    channel equal to the blockmax mode run with the word-tier mask."""
+    args = _inputs(card, B, L, 1500, dna_matrix(2, 2), False, seed=L + B)
+    rl = args[2]
+    j = torch.arange(L, device=card)[None, :]
+    wmask = (j < (rl[:, None] + 7) // 8 * 8).contiguous()
+    name = cuda_sw.shared_kernel_name(max_sub is not None, True, True)
+    before = cuda_sw.launch_counts()[name]
+    got = cuda_sw.forward_shared(*args, 3, 1, False, max_sub=max_sub,
+                                 blockmax=True, valid_len=1270, wmask=wmask)
+    assert cuda_sw.launch_counts()[name] == before + 1
+    assert tuple(got[3].shape) == (B, 2, 6)
+    _equal(got, scan_sw.forward_shared_ref(*args, 3, 1, False, blockmax=True,
+                                           valid_len=1270, wmask=wmask))
+    word = cuda_sw.forward_shared(*args[:3], wmask, *args[4:], 3, 1, False,
+                                  max_sub=max_sub, blockmax=True,
+                                  valid_len=1270)
+    _equal((got[3][:, 1].contiguous(),), (word[3],))
+
+
+def test_packed_dual_pipeline_on_card_equals_cpu(card, monkeypatch):
+    """The streaming pipeline with packing forced and the dual tier on the
+    card against the re-run route on the CPU."""
+    rng = np.random.default_rng(31)
+    ref = rng.integers(0, 4, 2048).astype(np.int8)
+    reads = []
+    for i in range(48):
+        ln = int(rng.integers(30, 249))
+        s = int(rng.integers(0, 2048 - ln))
+        r = ref[s:s + ln].copy() if i % 2 == 0 else rng.integers(
+            0, 4, ln).astype(np.int8)
+        reads.append(r)
+    req = pipeline.BatchRequest(reads=reads, ref=ref, mat=dna_matrix(2, 2),
+                                gapO=3, gapE=1,
+                                mask_len=[max(len(r) // 2, 15)
+                                          for r in reads])
+    monkeypatch.setattr(pipeline, "STREAM_SUBOPT", True)
+    monkeypatch.setattr(pipeline, "PACK", True)
+    monkeypatch.setattr(pipeline, "PACK_L", 512)
+    cuda_sw.reset_launches()
+    got = pipeline.align_batch(req)
+    assert cuda_sw.launch_counts()["forward_shared_packed_dual"] == 1
+    monkeypatch.setattr(pipeline, "PACK", False)
+    monkeypatch.setattr(pipeline, "DUAL", False)
     want = pipeline.align_batch(req, device="cpu")
     assert [vars(a) for a in got] == [vars(b) for b in want]

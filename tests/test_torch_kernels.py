@@ -267,6 +267,10 @@ def test_cuda_wrappers_route_cpu_tensors_to_plain():
                                        "forward_shared_i16": 0,
                                        "forward_shared_blockmax": 0,
                                        "forward_shared_i16_blockmax": 0,
+                                       "forward_shared_dual": 0,
+                                       "forward_shared_i16_dual": 0,
+                                       "forward_shared_packed": 0,
+                                       "forward_shared_packed_dual": 0,
                                        "forward_perread": 0}
 
 

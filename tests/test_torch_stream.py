@@ -322,7 +322,9 @@ def _port(req, monkeypatch, capsys, streaming):
 
 # inputs whose leaf re-runs some reads in their final tier, so that the
 # re-run's block maxima are spliced into the leaf's: byte rows for
-# might-but-did-not-overflow reads, word geometry on the quirk path
+# might-but-did-not-overflow reads (with the dual tier off, which would
+# answer them in one pass, and packing off: tests/test_torch_pack.py), word
+# geometry on the quirk path
 RERUN = ("random_dna", "quirk_protein")
 
 
@@ -341,6 +343,8 @@ def test_streaming_matches_jax_and_full_scan(name, monkeypatch, capsys,
         return real_forward(st, reads_d, *args)
 
     monkeypatch.setattr(pipeline, "_forward", forward)
+    monkeypatch.setattr(pipeline, "DUAL", False)
+    monkeypatch.setattr(pipeline, "PACK", False)
     got, err = _port(req, monkeypatch, capsys, True)
     assert stream_calls == [len(req.reads)]
     assert (len(forwards) > 1) == (name in RERUN), forwards
