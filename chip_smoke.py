@@ -16,32 +16,46 @@ Phases (any failure exits non-zero before the final line):
      blocks, score/ends equal to the base mode's on the same inputs); the
      packed kernel (both tiers' slots, the quirk, dual, degenerate reads,
      W 256..4096, up to 64 slots) and the dual mode of both forward tiers,
-     also equal to the unpacked blockmax kernel channel by channel
+     also equal to the unpacked blockmax kernel channel by channel; the
+     bounded-radius gate (phase_gate) in every forward kernel and mode, K 2
+     to 34, the card's tiers and the JAX plan's, against the gated plain
+     model and the ungated launch, depth histograms count for count
   4. the ssw_test main path (ssw_tpu_torch.cli.main) on the card, byte-equal
      to the reference-binary captures in tests/golden (configs 1-3), then
-     every golden again with the streaming suboptimal scan forced
+     every golden again with the streaming suboptimal scan forced, and with
+     the card's gate tiers on every launch (GATE = "tiers")
   5. config 4 at real size: 8192 Illumina-like 100 bp reads sampled from
      tests/data/1M.fa, -c -s -h -r, in turns: the full (B, R) suboptimal
-     scan, streaming unpacked, streaming by the default rules (packed),
-     streaming with PACK = True, then back; the SAM outputs must be
-     byte-equal.  reads/s, GCUPS, phase seconds, peak device memory,
-     launches and the share of reads whose POS is the sampled position,
-     for each run.
+     scan, streaming unpacked, streaming by the default rules (packed,
+     the gate by its rule), the default without the gate (GATE = False),
+     streaming with PACK = True and the card's gate tiers everywhere, in
+     turns; the SAM outputs must be byte-equal.  reads/s,
+     GCUPS, phase seconds, peak device memory, launches (all and gated),
+     the gate's column steps by scan depth and the share of reads whose POS
+     is the sampled position, for each run.
   5b. a 10 Mbp target (1M.fa and nine copies of it with 5 % seeded
      substitutions, one record) with 4096 reads, streaming by the default
-     rule; the first 256 reads again with the full scan, byte-equal.
+     rule, then with GATE = False; the first 256 reads again with the full
+     scan, byte-equal.
   5c. the reference README's Ion Torrent headline at full size: 1000 reads
      of 25-540 bp vs a 4,938,920 bp genome (tools/make_data.py's generator,
      copied), -c -s -h, streaming, in turns: the default rules (packed, the
-     dual tier), unpacked dual, the re-run route (PACK = DUAL = False), the
-     JAX planner's packing (PACK = True), the default again, byte-equal;
-     then its reads of 273 bp and more with the penalties scaled by 20 (the
-     int32 tier), dual vs the re-run route, byte-equal.
-     Launch counts are set to 0 before phase 4 and read after phase 5c:
-     these are the main path, and each kernel must have run in it.
-  6. kernel timing at the largest shapes phases 4-5c gave each kernel,
-     beside the plain version and the integer-ALU bound, and packed leaves
-     beside unpacked leaves of the same reads in turns; prints the
+     dual tier, the gate by its rule), GATE = False, unpacked dual, the
+     re-run route (PACK = DUAL = False), the JAX planner's packing (PACK =
+     True), these three with the card's gate tiers everywhere, GATE = False
+     and the default again, byte-equal; then its reads of 273 bp and more
+     with the penalties scaled by 20 (the int32 tier, gate tiers), dual vs
+     the re-run route, byte-equal.
+  5d. the same reads and genome with the README's second penalty set,
+     -m 1 -x 3 -o 5 -e 2 -c -s -h (the JAX package's gate_plan turns its
+     gate on there), in turns: GATE = None, False, True, None, byte-equal.
+     Launch counts are set to 0 before phase 4 and read after phase 5d:
+     these are the main path, and each kernel must have run in it, each
+     forward kernel with the gate too.
+  6. kernel timing at the largest shapes phases 4-5d gave each kernel,
+     beside the plain version and the integer-ALU bound, packed leaves
+     beside unpacked leaves of the same reads in turns, and each gated
+     kernel family beside its ungated launch in turns; prints the
      {"kernels": [...]} line
 
 The last line of stdout is {"ok": true, "device": {...}}.  Imports nothing
@@ -71,8 +85,15 @@ TARGET10M_COPIES = 9        # 1M.fa + 9 mutated copies: BASELINE config 5's
                             # 10 Mbp on one card
 TARGET10M_READS = 4096      # config 5 cut to 4096 reads (depth)
 TARGET10M_FULL_READS = 256  # of those, run again with the full scan
-SLICE_COLS = 32768          # target columns of the forward kernel's timed
-                            # slice, short enough for its plain version
+SLICE_COLS = 8192           # target columns of the forward kernel's timed
+                            # slice (from the middle of the leaf's real
+                            # columns), short enough for its plain version
+
+
+def mid_slice(R, valid_len, cols):
+    """First column of a cols-wide slice centred in the real columns: 1M.fa
+    starts with 10,001 Ns."""
+    return max(0, min(R, valid_len or R) // 2 - cols // 2)
 
 
 class SmokeFailure(Exception):
@@ -283,18 +304,20 @@ def phase_kernels(torch, dev):
 
 
 def make_packed(torch, common, dev, *, mat, lens, word_rows, W, R, vl, seed,
-                max_slots=64):
+                max_slots=64, gate_k=None):
     """Reads of the given lengths (half embedded in the target with 5 %
-    substitutions), the target's columns past vl the virtual letter (the
-    pipeline's padding), in the packed layout (common.pack_plan at W lanes)
-    and unpacked: (packed args, unpacked args with each read's tier's
-    col_mask, byte-tier col_mask, word-tier col_mask, plan)."""
+    substitutions; with gate_k, gate_reads' hot and cold reads), the
+    target's columns past vl the virtual letter (the pipeline's padding),
+    in the packed layout (common.pack_plan at W lanes) and unpacked:
+    (packed args, unpacked args with each read's tier's col_mask, byte-tier
+    col_mask, word-tier col_mask, plan)."""
     rng = np.random.default_rng(seed)
     n = mat.shape[0]
     ref = np.full(R, n, np.int32)
     ref[:vl] = rng.integers(0, n - 1, vl)
-    reads = []
-    for b, ln in enumerate(lens):
+    reads = [] if gate_k is None else gate_reads(rng, lens, ref, vl, n,
+                                                 gate_k)
+    for b, ln in enumerate(lens if gate_k is None else ()):
         ln = int(ln)
         if b % 2 and vl > ln:
             s = int(rng.integers(0, vl - ln))
@@ -423,6 +446,187 @@ def phase_packed(torch, dev, worst):
                 same = max_abs_diff(torch, got, unp) == 0
             check(same, f"packed {label} dual={dual}: != the unpacked "
                   f"blockmax kernel")
+
+
+def gate_reads(rng, lens, ref, vl, n, K):
+    """tests/test_gatescan.py's hot and cold reads, and hot reads the gate
+    can get wrong: every 4th read an exact copy of the target (it closes
+    the gate near its hit), every 4th from the second a copy with a
+    read-side insertion of K + 1 .. 64 random bases after a prefix of up to
+    40 (F has to carry the prefix's score across the insertion, further
+    than depth 0 reaches), the rest random (they keep the gate open)."""
+    reads = []
+    for b, ln in enumerate(lens):
+        ln = int(ln)
+        r = rng.integers(0, n - 1, ln).astype(np.int32)
+        a = min(40, ln // 3)
+        ins = min(64, ln - a - 8)
+        if b % 4 == 0 and vl > ln:
+            s = int(rng.integers(0, vl - ln))
+            r = ref[s:s + ln].copy()
+        elif b % 4 == 1 and ins > K and vl > ln:
+            ins = int(rng.integers(K + 1, ins + 1))
+            s = int(rng.integers(0, vl - ln))
+            r = np.concatenate([ref[s:s + a], r[:ins],
+                                ref[s + a:s + ln - ins]])
+        reads.append(r)
+    return reads
+
+
+def make_gate_shared(torch, common, dev, *, B, L, R, mat, word, seed):
+    """gate_reads of lengths L/3 .. L-16 against a random target, with
+    their geometry (make_shared's layout)."""
+    rng = np.random.default_rng(seed)
+    n = mat.shape[0]
+    ref = rng.integers(0, n - 1, R).astype(np.int32)
+    read_len = rng.integers(max(L // 3, 2), L - 16, B).astype(np.int32)
+    reads = gate_reads(rng, read_len, ref, R, n, L // 32)
+    prof = common.build_profile(common.pad_reads(reads, L, n), read_len,
+                                common.extend_matrix(mat))
+    geo = common.batch_geometry(read_len, L, word=word)
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a)).to(dev)
+    return (t(prof), t(ref), t(read_len), t(geo.col_mask), t(geo.seg_id),
+            t(geo.seg_start))
+
+
+def phase_gate(torch, dev, worst):
+    """The gated forward kernels (the bounded-radius gate, every mode and
+    tier, the card's tiers and the JAX plan's) against their plain model,
+    which runs the same truncated scans, and against their own ungated
+    launch: exact outputs, and the kernel's histogram of column steps by
+    scan depth equal to the plain model's, count for count.  Returns the
+    steps by depth summed per kernel."""
+    from ssw_tpu_torch.core.encoding import BLOSUM50
+    from ssw_tpu_torch.ops import common, cuda_sw, gate, pack, scan_sw
+
+    steps = {}
+
+    def one(label, name, kernel, plain, thr):
+        """kernel(gate) and plain(gate) -> outputs (plain: with steps)."""
+        cuda_sw.reset_gate_steps()
+        got = kernel(thr)
+        hist = cuda_sw.gate_steps()  # synchronises
+        ungated = kernel(None)
+        want, want_hist = plain(thr)
+        torch.cuda.synchronize()
+        err = max(max_abs_diff(torch, got, want),
+                  max_abs_diff(torch, got, ungated))
+        worst[name] = max(worst[name], err)
+        want_hist = want_hist.tolist()
+        log(f"  gate {label} {name} thr={list(thr)}: max_abs_err {err}, "
+            f"steps by depth {hist}")
+        check(err == 0, f"gate {label} {name}: gated kernel != plain model "
+              f"or != ungated kernel (max_abs_err {err})")
+        check(hist == want_hist, f"gate {label} {name}: depth histogram "
+              f"{hist} != the plain model's {want_hist}")
+        check(sum(hist[:5]) > 0, f"gate {label} {name}: the gate never "
+              f"opened")
+        tot = steps.setdefault(name, [0] * len(hist))
+        for m, c in enumerate(hist):
+            tot[m] += c
+
+    q_mat = dna_mat(2, 4)  # min -4 < -2*gapE: the quirk is observable
+    shared = [  # label, L, B, R, mat, gapO, gapE, quirk, plan
+        ("K=2 m2x2o3e1", 64, 22, 600, dna_mat(2, 2), 3, 1, False, None),
+        ("K=4 m2x2o3e1", 128, 21, 600, dna_mat(2, 2), 3, 1, False, None),
+        ("K=8 m1x3o5e2", 256, 17, 600, dna_mat(1, 3), 5, 2, False, None),
+        ("K=8 m1x3o5e2 JAX plan", 256, 17, 600, dna_mat(1, 3), 5, 2, False,
+         "1"),
+        ("K=8 m2x2o3e1 JAX plan forced", 256, 17, 600, dna_mat(2, 2), 3, 1,
+         False, "force"),
+        ("K=14 m2x2o3e1", 448, 13, 600, dna_mat(2, 2), 3, 1, False, None),
+        ("K=16 m2x2o3e1", 512, 11, 600, dna_mat(2, 2), 3, 1, False, None),
+        ("K=32 m2x2o3e1", 1024, 7, 600, dna_mat(2, 2), 3, 1, False, None),
+        ("K=34 GlobRow m2x2o3e1", 1088, 7, 600, dna_mat(2, 2), 3, 1, False,
+         None),
+        ("K=4 quirk 2/-4", 128, 19, 600, q_mat, 3, 1, True, None),
+        ("K=8 quirk BLOSUM50 o10e2", 256, 13, 600, BLOSUM50, 10, 2, True,
+         None),
+    ]
+    for i, (label, L, B, R, mat, gO, gE, quirk, plan) in enumerate(shared):
+        args = make_gate_shared(torch, common, dev, B=B, L=L, R=R, mat=mat,
+                                word=False, seed=500 + i)
+        ms = int(np.abs(mat).max())
+        K = L // 32
+        if plan is None:
+            thr = gate.card_thresholds(K, L, gO, gE, ms)
+        else:
+            gate.GATESCAN = plan
+            try:
+                thr = gate.plan_thresholds(K, L, gO, gE, ms)
+            finally:
+                gate.GATESCAN = "1"
+        check(thr is not None, f"gate {label}: no threshold")
+        rl = args[2]
+        j = torch.arange(L, device=dev)[None, :]
+        wmask = (j < (rl[:, None] + 7) // 8 * 8).contiguous()
+        vl = R - 37
+        modes = [("base", {}), ("blockmax", dict(blockmax=True,
+                                                 valid_len=vl))]
+        if not quirk:
+            modes.append(("dual", dict(blockmax=True, valid_len=vl,
+                                       wmask=wmask)))
+        tiers = [None] + ([ms] if cuda_sw.i16_exact(L, gO, gE, ms, quirk)
+                          else [])
+        for mode, kw in modes:
+            for tier in tiers:
+                name = cuda_sw.shared_kernel_name(
+                    tier is not None, mode != "base", mode == "dual")
+                one(f"{label} {mode}", name,
+                    lambda g: cuda_sw.forward_shared(
+                        *args, gO, gE, quirk, max_sub=tier, gate=g, **kw),
+                    lambda g: scan_sw.forward_shared_ref(
+                        *args, gO, gE, quirk, gate=g, pairs=tier is not None,
+                        steps=True, **kw), thr)
+
+    rng = np.random.default_rng(78)
+    packed = [  # label, mat, gapO, gapE, quirk, lens, word_rows, W, R, vl
+        ("m2x2o3e1 byte W=1024", dna_mat(2, 2), 3, 1, False,
+         rng.integers(20, 221, 40), np.zeros(40, bool), 1024, 768, 700),
+        ("m1x3o5e2 mixed tiers W=512", dna_mat(1, 3), 5, 2, False,
+         rng.integers(60, 221, 37), np.arange(37) % 2 == 0, 512, 768, 700),
+        ("quirk 2/-4 word W=512", q_mat, 3, 1, True,
+         rng.integers(20, 221, 24), np.ones(24, bool), 512, 512, 500),
+        ("64 slots W=4096", dna_mat(2, 2), 3, 1, False,
+         rng.integers(33, 65, 160), np.zeros(160, bool), 4096, 512, 512),
+        ("slots past 1024 lanes W=4096", dna_mat(2, 2), 3, 1, False,
+         rng.integers(1100, 1500, 6), np.zeros(6, bool), 4096, 512, 400),
+    ]
+    for label, mat, gO, gE, quirk, lens, word_rows, W, R, vl in packed:
+        slot = np.where(word_rows, (lens + 7) // 8 * 8, (lens + 15) // 16 * 16)
+        smax = int(slot.max())
+        K = pack.packed_lanes(smax) // 32
+        pa, _, _, _, plan = make_packed(
+            torch, common, dev, mat=mat, lens=lens, word_rows=word_rows, W=W,
+            R=R, vl=vl, seed=len(label) + 1, gate_k=K)
+        ms = int(np.abs(mat).max())
+        word = bool(word_rows.all())
+        thrs = [("card", gate.card_thresholds(K, smax, gO, gE, ms))]
+        gate.GATESCAN = "force"
+        try:
+            thrs.append(("JAX plan forced", gate.plan_thresholds(
+                K, W, gO, gE, ms, pack.pack_bound(smax))))
+        finally:
+            gate.GATESCAN = "1"
+        duals = (False,) if quirk or not (~word_rows).all() else (False,
+                                                                  True)
+        for src, thr in thrs:
+            if thr is None:
+                continue
+            for dual in duals:
+                kw = dict(max_sub=ms, valid_len=vl, quirk=quirk, word=word,
+                          dual=dual)
+                one(f"packed {label} S={plan.S} {src}",
+                    "forward_shared_packed" + ("_dual" if dual else ""),
+                    lambda g: cuda_sw.forward_shared_packed(*pa, gO, gE,
+                                                            gate=g, **kw),
+                    lambda g: scan_sw.forward_shared_ref_packed(
+                        *pa, gO, gE, gate=g, steps=True, **kw), thr)
+    for name, tot in steps.items():
+        log(f"  gate {name}: steps by depth {tot}")
+        check(sum(tot[:5]) > 0 and tot[5] > 0, f"gate {name}: depths below "
+              f"5 and the full scan did not both occur ({tot})")
+    return steps
 
 
 # ------------------------------------------------------------------- phase 4
@@ -578,6 +782,8 @@ def run_sam(torch, dev, target, fq, label, card, truth=None,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     before = cuda_sw.launch_counts()
+    gated_before = cuda_sw.gated_counts()
+    cuda_sw.reset_gate_steps()
     t0 = time.perf_counter()
     with pipeline.profiled(counter):
         rc, out, err = run_cli(cli, [*flags, target, fq], dev)
@@ -586,6 +792,8 @@ def run_sam(torch, dev, target, fq, label, card, truth=None,
     peak = torch.cuda.max_memory_allocated(dev)
     launches = {k: n - before[k] for k, n in cuda_sw.launch_counts().items()
                 if n != before[k]}
+    gated = {k: n - gated_before[k] for k, n in cuda_sw.gated_counts().items()
+             if n != gated_before[k]}
     check(rc == 0, f"{label}: cli rc {rc}: {err[-2000:]}")
     hits = total = 0
     for line in out.splitlines():
@@ -602,7 +810,8 @@ def run_sam(torch, dev, target, fq, label, card, truth=None,
         "gcups_forward_phase": counter.cells / fwd_s / 1e9 if fwd_s else 0.0,
         "gcups_wall": counter.cells / wall / 1e9,
         "phase_seconds": counter.seconds, "peak_device_bytes": peak,
-        "launches": launches,
+        "launches": launches, "gated": gated,
+        "gate_steps_by_depth": cuda_sw.gate_steps(),
     }
     if truth is not None:
         res["begin_at_sampled_pos"] = hits / max(len(truth), 1)
@@ -615,37 +824,53 @@ def run_sam(torch, dev, target, fq, label, card, truth=None,
     return out, res
 
 
+def check_gated(label, gate_setting, res):
+    """A run with GATE = False launches nothing gated, one with "tiers"
+    launches only gated forward kernels."""
+    fwd = {k: n for k, n in res["launches"].items() if k != "forward_perread"}
+    if gate_setting is False:
+        check(not res["gated"], f"{label}: gated launches {res['gated']}")
+    if gate_setting == "tiers":
+        check(res["gated"] == fwd, f"{label}: gated launches "
+              f"{res['gated']} of {fwd}")
+
+
 def phase_config4(torch, dev, scratch, n_reads, card):
     """Config 4 in turns: the full (B, R) suboptimal scan, streaming
-    unpacked (PACK = False), streaming by the default rules (which pack),
-    streaming with the JAX planner's packing (PACK = True: 1024-lane rows of
-    9 slots), then back in reverse order: every SAM output must be
-    byte-equal.  pipeline.STREAM_MIN_COLS and _pack_rule are set from these
+    unpacked (PACK = False), streaming with the JAX planner's packing (PACK
+    = True: 1024-lane rows of 9 slots) and the card's gate tiers, streaming
+    by the default rules (which pack), the default rules without the gate
+    (GATE = False) twice and the default again: every SAM output must be
+    byte-equal.
+    pipeline.STREAM_MIN_COLS, _pack_rule and _gate_rule are set from these
     walls."""
     from ssw_tpu_torch import pipeline
 
     fq = os.path.join(scratch, "illumina_1M.fastq")
     truth = sample_reads(fq, n_reads, seed=100_000, genome=load_genome())
     target = os.path.join(DATA, "1M.fa")
-    runs = {"full scan": (False, None, "5"),
-            "streaming unpacked": (True, False, "5s"),
-            "streaming default": (None, None, "5p"),
-            "streaming PACK=True": (None, True, "5j")}
-    order = ["full scan", "streaming unpacked", "streaming default",
-             "streaming PACK=True", "streaming default",
-             "streaming unpacked", "full scan"]
+    runs = {"full scan": (False, None, None, "5"),
+            "streaming unpacked": (True, False, None, "5s"),
+            "streaming default": (None, None, None, "5p"),
+            "streaming GATE=False": (None, None, False, "5p_off"),
+            "streaming PACK=True GATE=tiers": (None, True, "tiers", "5j")}
+    order = ["full scan", "streaming unpacked",
+             "streaming PACK=True GATE=tiers", "streaming default",
+             "streaming GATE=False", "streaming GATE=False",
+             "streaming default"]
     outs, walls = [], {k: [] for k in runs}
     for label in order:
-        stream, pk, tags[0] = runs[label]
-        pipeline.STREAM_SUBOPT, pipeline.PACK = stream, pk
+        stream, pk, gt, tags[0] = runs[label]
+        pipeline.STREAM_SUBOPT, pipeline.PACK, pipeline.GATE = stream, pk, gt
         try:
             out, res = run_sam(torch, dev, target, fq, f"config4 {label}",
                                card, truth)
         finally:
-            pipeline.STREAM_SUBOPT = pipeline.PACK = None
+            pipeline.STREAM_SUBOPT = pipeline.PACK = pipeline.GATE = None
         check(label == "full scan" or label == "streaming unpacked"
               or res["launches"].get("forward_shared_packed", 0) > 0,
               f"config 4 {label} did not pack")
+        check_gated(f"config 4 {label}", gt, res)
         outs.append(out)
         walls[label].append(res["wall_s"])
     check(all(o == outs[0] for o in outs), "config 4: the streaming SAMs "
@@ -677,6 +902,15 @@ def phase_target10m(torch, dev, scratch, card):
         f"{pipeline._rows_per_leaf(Rp, 128, False)}")
     tags[0] = "5b"
     out, res = run_sam(torch, dev, target, fq, "10M streaming", card, truth)
+    pipeline.GATE = False
+    tags[0] = "5b_off"
+    try:
+        out_off, res_off = run_sam(torch, dev, target, fq,
+                                   "10M streaming GATE=False", card, truth)
+    finally:
+        pipeline.GATE = None
+    check(out_off == out, "10 Mbp: GATE = False changed the SAM")
+    check_gated("10 Mbp GATE=False", False, res_off)
     # the first reads, alone, with the full scan
     fq_small = os.path.join(scratch, "illumina_10M_first.fastq")
     with open(fq) as f, open(fq_small, "w") as g:
@@ -699,7 +933,8 @@ def phase_target10m(torch, dev, scratch, card):
     check(out_full == want, "10 Mbp: the full scan's SAM differs from the "
           "streaming run's for the same reads")
     log(f"  10M: the full scan's SAM of the first {TARGET10M_FULL_READS} "
-        f"reads is byte-equal to the streaming run's")
+        f"reads is byte-equal to the streaming run's; walls default "
+        f"{res['wall_s']} s, GATE=False {res_off['wall_s']} s")
     return res, res_full
 
 
@@ -737,45 +972,58 @@ def make_iontorrent(out_ref, out_fq, genome_len=ION_GENOME,
     return truth
 
 
-def phase_iontorrent(torch, dev, scratch, card, genome_len=ION_GENOME,
-                     n_reads=ION_READS):
-    """The Ion Torrent headline at full size, -c -s -h, in turns: the
-    default rules (the dual tier, every group packed by the card's rule),
-    unpacked with the dual tier (PACK = False), the re-run route (PACK =
-    False, DUAL = False), the JAX planner's packing (PACK = True: it packs
-    the L = 192 group), the default again; byte-equal SAMs.  Then the
-    reads of ION_I32_MIN_LEN bp and more with the default penalties scaled
-    by 20 (-m 40 -x 40 -o 60 -e 20: the same alignments, outside the int16
-    tier's bound), dual vs the re-run route."""
-    from ssw_tpu_torch import pipeline
-
+def ion_data(scratch, genome_len=ION_GENOME, n_reads=ION_READS):
+    """The Ion Torrent headline's target and reads, made once for phases
+    5c and 5d: (target path, FASTQ path, truth)."""
     t0 = time.perf_counter()
     target = os.path.join(scratch, "ecoli_synth.fa")
     fq = os.path.join(scratch, "iontorrent_1k.fastq")
     truth = make_iontorrent(target, fq, genome_len, n_reads)
     log(f"  target {genome_len} bp, {n_reads} reads, made in "
         f"{time.perf_counter() - t0:.1f} s")
+    return target, fq, truth
+
+
+def phase_iontorrent(torch, dev, scratch, card, ion):
+    """The Ion Torrent headline at full size, -c -s -h, in turns: the
+    default rules (the dual tier, every group packed by the card's rule,
+    the gate by its rule), the default without the gate (GATE = False),
+    unpacked with the dual tier (PACK = False), the re-run route (PACK =
+    False, DUAL = False), the JAX planner's packing (PACK = True: it packs
+    the L = 192 group), these three with the card's gate tiers everywhere
+    (GATE = "tiers"), GATE = False and the default again; byte-equal SAMs.
+    Then the reads of ION_I32_MIN_LEN bp and more with the default
+    penalties scaled by 20 (-m 40 -x 40 -o 60 -e 20: the same alignments,
+    outside the int16 tier's bound), dual vs the re-run route, both with
+    the card's gate tiers."""
+    from ssw_tpu_torch import pipeline
+
+    target, fq, truth = ion
     outs, res = [], {}
-    for i, (label, pk, du) in enumerate((
-            ("default", None, None), ("unpacked dual", False, None),
-            ("re-run route", False, False), ("PACK=True", True, None),
-            ("default", None, None))):
-        pipeline.PACK, pipeline.DUAL = pk, du
+    for i, (label, pk, du, gt) in enumerate((
+            ("default", None, None, None), ("GATE=False", None, None, False),
+            ("unpacked dual GATE=tiers", False, None, "tiers"),
+            ("re-run route GATE=tiers", False, False, "tiers"),
+            ("PACK=True GATE=tiers", True, None, "tiers"),
+            ("GATE=False", None, None, False), ("default", None, None, None))):
+        pipeline.PACK, pipeline.DUAL, pipeline.GATE = pk, du, gt
         tags[0] = f"5c{i}"
         try:
             out, r = run_sam(torch, dev, target, fq, f"ion {label}", card,
                              truth, flags=("-c", "-s", "-h"))
         finally:
-            pipeline.PACK = pipeline.DUAL = None
+            pipeline.PACK = pipeline.DUAL = pipeline.GATE = None
+        check_gated(f"Ion Torrent {label}", gt, r)
         outs.append(out)
         res.setdefault(label, []).append(r)
     check(all(o == outs[0] for o in outs), "Ion Torrent: the SAMs of the "
-          "default, unpacked dual, re-run, PACK=True and default runs differ")
-    for label in ("default", "PACK=True"):
+          "default, GATE=False, unpacked dual, re-run, PACK=True and default "
+          "runs differ")
+    for label in ("default", "PACK=True GATE=tiers"):
         check(res[label][0]["launches"].get("forward_shared_packed_dual", 0)
               > 0, f"Ion Torrent {label} did not pack")
     walls = {k: [r["wall_s"] for r in v] for k, v in res.items()}
-    log(f"  ion: five SAMs byte-equal ({len(outs[0])} bytes); walls "
+    log(f"  ion: seven SAMs byte-equal ({len(outs[0])} bytes); walls "
         f"{json.dumps(walls)}")
     # int32 tier: long reads, scaled penalties
     fq32 = os.path.join(scratch, "iontorrent_long.fastq")
@@ -788,15 +1036,17 @@ def phase_iontorrent(torch, dev, scratch, card, genome_len=ION_GENOME,
              "-h")
     outs32 = []
     for i, du in enumerate((None, False)):
-        pipeline.PACK, pipeline.DUAL = False, du  # the unpacked int32 tier
+        # the unpacked int32 tier, with the card's gate tiers everywhere
+        pipeline.PACK, pipeline.DUAL, pipeline.GATE = False, du, "tiers"
         tags[0] = f"5c_i32_{i}"
         try:
             out, r = run_sam(torch, dev, target, fq32,
                              f"ion >= {ION_I32_MIN_LEN} bp x20 penalties "
-                             + ("dual" if du is None else "re-run route"),
-                             card, None, flags=flags)
+                             + ("dual" if du is None else "re-run route")
+                             + " GATE=tiers", card, None, flags=flags)
         finally:
-            pipeline.PACK = pipeline.DUAL = None
+            pipeline.PACK = pipeline.DUAL = pipeline.GATE = None
+        check_gated("Ion Torrent x20", "tiers", r)
         outs32.append(out)
         if du is None:
             check(r["launches"].get("forward_shared_dual", 0) > 0,
@@ -810,6 +1060,45 @@ def phase_iontorrent(torch, dev, scratch, card, genome_len=ION_GENOME,
     log(f"  ion x20 penalties: {len(recs)} reads, dual SAM byte-equal to "
         f"the re-run route's, {hits / len(recs):.4f} at the sampled "
         f"position")
+    return res
+
+
+ION_PENALTIES2 = ("-m", "1", "-x", "3", "-o", "5", "-e", "2")
+
+
+def phase_iontorrent_o5e2(torch, dev, card, ion):
+    """The reference README's second configuration of the Ion Torrent
+    headline: the same reads and genome with -m 1 -x 3 -o 5 -e 2 -c -s -h,
+    the only full-size run where the JAX package's gate_plan turns the gate
+    on.  In turns: the card's rule (GATE = None), no gate, the JAX plan
+    (GATE = True), the card's rule again; byte-equal SAMs, >= 95 % of
+    reads at the sampled position."""
+    from ssw_tpu_torch import pipeline
+
+    target, fq, truth = ion
+    outs, res = [], {}
+    for i, (label, gt) in enumerate((("GATE=None", None),
+                                     ("GATE=False", False),
+                                     ("GATE=True", True),
+                                     ("GATE=None", None))):
+        pipeline.GATE = gt
+        tags[0] = f"5d{i}"
+        try:
+            out, r = run_sam(torch, dev, target, fq, f"ion o5e2 {label}",
+                             card, truth, flags=ION_PENALTIES2
+                             + ("-c", "-s", "-h"))
+        finally:
+            pipeline.GATE = None
+        check_gated(f"Ion Torrent o5e2 {label}", gt, r)
+        check(gt is False or r["gated"], f"Ion Torrent o5e2 {label}: the "
+              f"gate did not run")
+        outs.append(out)
+        res.setdefault(label, []).append(r)
+    check(all(o == outs[0] for o in outs), "Ion Torrent o5e2: the SAMs of "
+          "GATE None, False, True and None differ")
+    walls = {k: [r["wall_s"] for r in v] for k, v in res.items()}
+    log(f"  ion o5e2: four SAMs byte-equal ({len(outs[0])} bytes); walls "
+        f"{json.dumps(walls)}")
     return res
 
 
@@ -862,8 +1151,9 @@ def record_main_path(cuda_sw):
 
 # ------------------------------------------------------------------- phase 6
 
-def time_ms(torch, fn, reps):
-    fn()  # warm-up
+def time_ms(torch, fn, reps, warm=True):
+    if warm:
+        fn()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
@@ -876,14 +1166,18 @@ def time_ms(torch, fn, reps):
 
 
 def in_turns(torch, fa, fb, reps):
-    """Times of fa and fb timed in turns a, b, b, a on one card."""
-    ta = [time_ms(torch, fa, reps)]
-    tb = [time_ms(torch, fb, reps) for _ in range(2)]
-    ta.append(time_ms(torch, fa, reps))
+    """Times of fa and fb timed in turns a, b, b, a on one card, after one
+    warm-up call of each."""
+    fa()
+    fb()
+    ta = [time_ms(torch, fa, reps, warm=False)]
+    tb = [time_ms(torch, fb, reps, warm=False) for _ in range(2)]
+    ta.append(time_ms(torch, fa, reps, warm=False))
     return sum(ta) / 2, sum(tb) / 2
 
 
-def phase_timing(torch, dev, rec, worst, launches, clock_mhz, slice_cols):
+def phase_timing(torch, dev, rec, worst, launches, gated_launches, clock_mhz,
+                 slice_cols):
     from ssw_tpu_torch.ops import cuda_sw, scan_sw
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -892,14 +1186,16 @@ def phase_timing(torch, dev, rec, worst, launches, clock_mhz, slice_cols):
         f"{clock_mhz} MHz = {int32_rate:.4g} op/s")
     rows = []
 
-    def call(name, tag=None):
+    def call(name, tag=None, gated=False):
         """(args, kwargs) of the kernel's largest main-path call, or of its
-        largest call in phase `tag`."""
+        largest call in phase `tag`; without the gate unless gated."""
         got = [(size, key[1], a, kw) for key, (size, a, kw) in rec.items()
                if key[0] == name and (tag is None or key[1] == tag)]
         check(got, f"no main-path call of {name}"
               + (f" in phase {tag}" if tag else ""))
         _, t, a, kw = max(got, key=lambda g: g[0])
+        if not gated:
+            kw = {k: v for k, v in kw.items() if k != "gate"}
         return a, kw, t
 
     def bound(ops, nbytes):
@@ -945,8 +1241,9 @@ def phase_timing(torch, dev, rec, worst, launches, clock_mhz, slice_cols):
         B, n1, L = prof.shape
         R = int(ref.numel())
         cols = min(slice_cols, R)
-        sl = (prof, ref[:cols].contiguous(), rl, cm, seg, ss, gapO, gapE,
-              quirk)
+        lo = mid_slice(R, kw.get("valid_len"), cols)
+        sl = (prof, ref[lo:lo + cols].contiguous(), rl, cm, seg, ss, gapO,
+              gapE, quirk)
         plain_kw = {k: v for k, v in kw.items() if k != "max_sub"}
         ms = time_ms(torch, lambda: cuda_sw.forward_shared(*sl, **kw), 5)
         t0 = time.perf_counter()
@@ -1094,7 +1391,8 @@ def phase_timing(torch, dev, rec, worst, launches, clock_mhz, slice_cols):
         prof, ref = args[:2]
         R = int(ref.numel())
         cols = min(slice_cols, R)
-        sl_args = (prof, ref[:cols].contiguous(), *args[2:])
+        lo = mid_slice(R, kw.get("valid_len"), cols)
+        sl_args = (prof, ref[lo:lo + cols].contiguous(), *args[2:])
         plain_kw = {k: v for k, v in kw.items() if k != "slot_max"}
         ms = time_ms(torch, lambda: cuda_sw.forward_shared_packed(
             *sl_args, **kw), 5)
@@ -1167,12 +1465,90 @@ def phase_timing(torch, dev, rec, worst, launches, clock_mhz, slice_cols):
     rows.append(row)
     # packed dual: the Ion Torrent L = 192 group (phase 5c, PACK = True),
     # beside the unpacked dual leaf and the blockmax leaf of the same reads
-    row, pa, pkw = packed_row("forward_shared_packed_dual", "5c3")
-    ua, ukw, _ = call("forward_shared_i16_dual", "5c1")
+    row, pa, pkw = packed_row("forward_shared_packed_dual", "5c4")
+    ua, ukw, _ = call("forward_shared_i16_dual", "5c2")
     pack_vs_unpacked(row, "ion_L192_leaf_vs_int16_dual", (pa, pkw),
                      (ua, ukw), {"int16_blockmax": {
                          k: v for k, v in ukw.items() if k != "wmask"}})
     rows.append(row)
+
+    def gated_row(name, tag, leaf, source):
+        """Kernel `name` with the gate at its largest call in phase `tag`
+        (the gate the pipeline's rule gave it): on a column slice of the
+        leaf, timed in turns against the same launch without the gate, held
+        against the gated plain model (outputs and depth histogram), and
+        with `leaf`, the whole leaf in turns too.  The bound is the ungated
+        mode's: the gate changes no counted operation."""
+        args, kw, t = call(name, tag, gated=True)
+        thr = kw.get("gate")
+        check(thr is not None, f"{name} ran without the gate in phase {tag}")
+        ukw = {k: v for k, v in kw.items() if k != "gate"}
+        packed = name.startswith("forward_shared_packed")
+        fn = (cuda_sw.forward_shared_packed if packed
+              else cuda_sw.forward_shared)
+        R = int(args[1].numel())
+        cols = min(slice_cols // 2, R)  # the gated plain model is slower
+        lo = mid_slice(R, ukw.get("valid_len"), cols)
+        sl = (args[0], args[1][lo:lo + cols].contiguous(), *args[2:])
+        ms, ungated_ms = in_turns(torch, lambda: fn(*sl, **kw),
+                                  lambda: fn(*sl, **ukw), 3)
+        cuda_sw.reset_gate_steps()
+        got = fn(*sl, **kw)
+        hist = cuda_sw.gate_steps()
+        t0 = time.perf_counter()
+        if packed:
+            want, want_hist = scan_sw.forward_shared_ref_packed(
+                *sl, gate=thr, steps=True,
+                **{k: v for k, v in ukw.items() if k != "slot_max"})
+        else:
+            want, want_hist = scan_sw.forward_shared_ref(
+                *sl, gate=thr, pairs="_i16" in name, steps=True,
+                **{k: v for k, v in ukw.items() if k != "max_sub"})
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = max_abs_diff(torch, got, want)
+        check(err == 0 and hist == want_hist.tolist(),
+              f"{name} gated at the main-path shape: max_abs_err {err}, "
+              f"steps {hist} vs the plain model's {want_hist.tolist()}")
+        if packed:
+            vl = min(cols, ukw.get("valid_len") or cols)
+            b_ms, b_by = packed_bound(args, ukw, vl)
+        else:
+            b_ms, b_by = shared_bound(name, args[0], args[3], cols, args[8],
+                                      ukw.get("wmask"))
+        row = {
+            "name": name + "+gate", "route": "cuda", "source": source,
+            "replaces": "ssw_tpu/ops/pallas_sw.py:314-359 (_forward_kernel, "
+                        "bounded-radius gate: hm sample :314-321, tiers "
+                        ":334-353, run_group bound :231-236; gate_plan "
+                        ":645; pallas_call at :557)",
+            "launches": gated_launches[name],
+            "max_abs_err": max(err, worst[name]), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "ungated_ms": ungated_ms, "gate": list(thr),
+            "steps_by_depth": hist,
+            "shape": f"{tuple(args[0].shape)} R={cols} phase {t}"
+                     + (f" (columns {lo}.. of the leaf)" if cols < R else ""),
+        }
+        if leaf and cols < R:
+            g_ms, u_ms = in_turns(torch, lambda: fn(*args, **kw),
+                                  lambda: fn(*args, **ukw), 1)
+            row["leaf"] = {"gated_ms": g_ms, "ungated_ms": u_ms,
+                           "ratio": g_ms / u_ms, "R": R}
+        return row
+
+    for name, tag, leaf, source in (
+            ("forward_shared_packed", "5j", True, "sw_forward_packed.cu"),
+            ("forward_shared_packed_dual", "5c4", True,
+             "sw_forward_packed.cu"),
+            ("forward_shared_packed_dual", "5d0", True,
+             "sw_forward_packed.cu"),
+            ("forward_shared_i16_dual", "5c2", True, "sw_forward_i16.cu"),
+            ("forward_shared_i16", "4t", False, "sw_forward_i16.cu"),
+            ("forward_shared", "4t", False, "sw_forward.cu"),
+            ("forward_shared_dual", "5c_i32_0", False, "sw_forward.cu")):
+        rows.append(gated_row(name, tag, leaf,
+                              "ssw_tpu_torch/csrc/" + source))
 
     # forward_perread at the recorded reverse pass of config 4
     args, kw, _ = call("forward_perread", "5")
@@ -1273,6 +1649,7 @@ def main() -> int:
         log("phase 3 kernels vs plain versions (exact):")
         worst = phase_kernels(torch, dev)
         phase_packed(torch, dev, worst)
+        phase_gate(torch, dev, worst)
         log(f"phase 3 done in {time.perf_counter() - t0:.1f} s")
         if "--kernels-only" in sys.argv[1:]:
             log("stopped after phase 3 (--kernels-only): no result")
@@ -1291,6 +1668,12 @@ def main() -> int:
                 phase_golden(dev, scratch, "streaming")
             finally:
                 pipeline.STREAM_SUBOPT = None
+            tags[0] = "4t"
+            pipeline.GATE = "tiers"
+            try:
+                phase_golden(dev, scratch, "GATE=tiers")
+            finally:
+                pipeline.GATE = None
             log(f"phase 4 done in {time.perf_counter() - t0:.1f} s")
             t0 = time.perf_counter()
             log(f"phase 5 config 4: {CONFIG4_READS} reads vs 1M.fa, "
@@ -1305,17 +1688,27 @@ def main() -> int:
             t0 = time.perf_counter()
             log(f"phase 5c Ion Torrent headline: {ION_READS} reads vs "
                 f"{ION_GENOME} bp, -c -s -h:")
-            phase_iontorrent(torch, dev, scratch, smi)
+            ion = ion_data(scratch)
+            phase_iontorrent(torch, dev, scratch, smi, ion)
             log(f"phase 5c done in {time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            log(f"phase 5d Ion Torrent headline, second penalty set "
+                f"{' '.join(ION_PENALTIES2)}:")
+            phase_iontorrent_o5e2(torch, dev, smi, ion)
+            log(f"phase 5d done in {time.perf_counter() - t0:.1f} s")
         finally:
             rec = restore()
         launches = cuda_sw.launch_counts()
-        log(f"main-path launches (phases 4-5c): {json.dumps(launches)}")
+        gated = cuda_sw.gated_counts()
+        log(f"main-path launches (phases 4-5d): {json.dumps(launches)}; "
+            f"with the gate: {json.dumps(gated)}")
         for name, n in launches.items():
             check(n > 0, f"{name} was not launched on the main path")
+            check(name not in gated or gated[name] > 0,
+                  f"{name} never ran with the gate on the main path")
         t0 = time.perf_counter()
         log("phase 6 kernel timing at main-path shapes:")
-        kernels = phase_timing(torch, dev, rec, worst, launches,
+        kernels = phase_timing(torch, dev, rec, worst, launches, gated,
                                float(clock or 1980), SLICE_COLS)
         log(f"phase 6 done in {time.perf_counter() - t0:.1f} s")
         log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")

@@ -30,14 +30,43 @@
 // lane-cell and column the recurrence is 7 int32 operations, 11 with the
 // quirk (OPS_PER_CELL in ops/cuda_sw.py counts them); the maxima it writes
 // are at most 4 bytes per column per read (4 per 256 columns in the forward
-// kernels' blockmax mode).  The dependent chain of one column (two shuffles, a
-// 5-step scan, one reduce) is ~20 shuffle latencies long, so throughput
+// kernels' blockmax mode).  The dependent chain of one column is the carry
+// shuffle, sweep 1's K-step max chain of the lane totals, the 5-step shuffle
+// scan (a shuffle and a max each), the `run` shuffle, sweep 2's K-step
+// chain of the running prefix and the column reduce: 7 shuffles, one reduce
+// and about 2K + 5 dependent ALU operations; the forward kernels' best-hit
+// branch waits on the reduce before the next column starts.  Throughput
 // comes from many warps in flight: one warp per read, no block-wide
 // barriers.  Hopper's DPX instructions fuse the max(a + b, c) and
 // zero-clamped three-way maxima of the recurrence.
+//
+// The bounded-radius gate (ops/gate.py; the TPU kernel's, pallas_sw.py
+// :314-359, exactness argument :323-330) drops scan steps: a column run at
+// depth m < 5 makes only the first m steps of the shuffle scan.
+//   * Lazy F.  Lane p gets from lane p' < p the candidate
+//     h~(p') - gapO - (p - p' - 1)*gapE.
+//   * What depth m covers.  m steps, the `run` shuffle and the in-thread
+//     sweeps reach every source with p - p' <= 2^m*K, so a dropped source
+//     offers at most max h~ - gapO - 2^m*K*gapE: inert (<= 0, and H =
+//     max(h~, F, 0)) whenever max h~ <= gapO + 2^m*K*gapE.
+//   * Bounding h~ from the previous column.  Lane by lane E(j) <= H(j-1),
+//     so h~(j, p) <= max(H(j-1, p-1) + max_sub, H(j-1, p)); and colmax(j)
+//     <= max h~(j) as F <= max h~ - gapO.  Hence max h~(j) <= colmax(j-g) +
+//     g*max_sub over the col_mask lanes, with lag g = 1 here: the column
+//     max the warp already reduced.  Depth m is taken when colmax(j-1) <=
+//     thr[m] = gapO + 2^m*K*gapE - max_sub (or the JAX plan's stricter
+//     threshold), depth = #{m : hm > thr[m]} with thr non-decreasing.
+//   * Pad lanes.  col_mask is a prefix of the row (of the slot when
+//     packed) and carries move only rightward, so a valid lane's sources
+//     are valid lanes; a pad lane's inexact F reaches only pad lanes.
+//   * The quirk's segmented scan (totq) is never gated: the TPU gates only
+//     the plain prefix max (pallas_sw.py:258 against :268).
+// The two reads of an int16 warp share one scan, so their depth comes from
+// the larger of their two column maxima.
 
 #pragma once
 
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -49,6 +78,7 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxRegK = 32;         // largest K kept in registers
 constexpr int kScratchPlanes = 7;    // GlobRow planes per read
 constexpr int kBlockCols = 256;      // columns per block maximum (scan_sw.BM)
+constexpr int kDepths = 5;           // shuffle steps of the whole warp scan
 
 // max(a + b, c, 0)
 __device__ __forceinline__ int addmax0(int a, int b, int c) {
@@ -157,6 +187,77 @@ struct GlobRow {
   }
 };
 
+// The bounded-radius gate of one launch: non-decreasing thresholds
+// (ops/gate.py) and the device histogram of warp-column steps by depth.
+struct GateArgs {
+  int thr[kDepths];
+  unsigned long long* hist;  // [kDepths + 1]
+};
+
+// Thread t < kDepths holds thr[t], the others INT_MAX (read once).
+__device__ __forceinline__ int gate_lane_thr(const GateArgs& g, int t) {
+  int v = INT_MAX;
+#pragma unroll
+  for (int m = 0; m < kDepths; ++m)
+    if (t == m) v = g.thr[m];
+  return v;
+}
+
+// Scan depth #{m : hm > thr[m]} of a column whose previous column's masked
+// max is hm (warp-uniform): one compare per lane and a ballot.
+__device__ __forceinline__ int gate_depth(int hm, int lane_thr) {
+  return __popc(__ballot_sync(kFull, hm > lane_thr));
+}
+
+struct MaxI32 {
+  __device__ __forceinline__ int operator()(int a, int b) const {
+    return max(a, b);
+  }
+};
+
+// N steps (offsets 1, 2, .., 2^(N-1)) of the warp's inclusive max-scan.
+template <int N, class T, class Max>
+__device__ __forceinline__ T scan_steps(T x, int t, Max mx) {
+#pragma unroll
+  for (int s = 0; s < N; ++s) {
+    const T y = __shfl_up_sync(kFull, x, 1 << s);
+    if (t >= (1 << s)) x = mx(x, y);
+  }
+  return x;
+}
+
+// The first `depth` steps (warp-uniform): one switch per column over
+// unrolled scans; a compile-time kDepths folds to the whole scan.
+template <class T, class Max>
+__device__ __forceinline__ T scan_depth(T x, int t, int depth, Max mx) {
+  switch (depth) {
+    case 0: return x;
+    case 1: return scan_steps<1>(x, t, mx);
+    case 2: return scan_steps<2>(x, t, mx);
+    case 3: return scan_steps<3>(x, t, mx);
+    case 4: return scan_steps<4>(x, t, mx);
+    default: return scan_steps<kDepths>(x, t, mx);
+  }
+}
+
+// Host side: a launch's gate from its host thresholds (null: no gate) and
+// device histogram.  The kernels take it as a second parameter beside
+// their argument struct, whose layout stays that of the ungated kernels.
+__host__ inline GateArgs gate_args(const void* thr, void* hist) {
+  GateArgs g;
+  g.hist = static_cast<unsigned long long*>(hist);
+  for (int m = 0; m < kDepths; ++m)
+    g.thr[m] = thr ? static_cast<const int*>(thr)[m] : 0;
+  return g;
+}
+
+// Thread t <= kDepths counts the warp's columns run at depth t (`steps +=
+// depth == t` per column) and adds its count once, at the end.
+__device__ __forceinline__ void gate_flush(const GateArgs& g, int t,
+                                           unsigned steps) {
+  if (t <= kDepths && steps) atomicAdd(g.hist + t, (unsigned long long)steps);
+}
+
 template <int KT> struct RowSel { using type = RegRow<KT>; };
 template <> struct RowSel<0> { using type = GlobRow; };
 
@@ -182,10 +283,12 @@ __device__ __forceinline__ void row_setup(Row& r, int K, int t,
 }
 
 // One target column (profile row `code`) for one read; returns the masked
-// column max, identical on every lane.
+// column max, identical on every lane.  depth (warp-uniform): the gate's
+// scan steps, kDepths = the whole row.
 template <int KT, class Row>
 __device__ __forceinline__ int dp_column(Row& r, int K, int t, int code,
-                                         int gapO, int gapE, bool quirk) {
+                                         int gapO, int gapE, bool quirk,
+                                         int depth = kDepths) {
   const int KK = KT > 0 ? KT : K;  // a compile-time constant when KT > 0
   const int base = t * KK;
   int carry = __shfl_up_sync(kFull, r.H(KK - 1), 1);
@@ -201,16 +304,10 @@ __device__ __forceinline__ int dp_column(Row& r, int K, int t, int code,
     tot = addmax(ht, cc, tot);
     if (quirk) totq = addmax(ht, cc + r.SB(k), totq);
   }
-  // warp inclusive scan of the lane totals, then exclusive per lane
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const int y = __shfl_up_sync(kFull, tot, off);
-    if (t >= off) tot = max(tot, y);
-    if (quirk) {
-      const int yq = __shfl_up_sync(kFull, totq, off);
-      if (t >= off) totq = max(totq, yq);
-    }
-  }
+  // warp inclusive scan of the lane totals (its first `depth` steps), then
+  // exclusive per lane; the quirk's segmented scan runs every step
+  tot = scan_depth(tot, t, depth, MaxI32{});
+  if (quirk) totq = scan_steps<kDepths>(totq, t, MaxI32{});
   int run = __shfl_up_sync(kFull, tot, 1);
   int runq = quirk ? __shfl_up_sync(kFull, totq, 1) : kNeg;
   if (t == 0) run = runq = kNeg;

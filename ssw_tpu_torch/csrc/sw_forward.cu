@@ -24,8 +24,8 @@
 // the base mode on the same inputs.  The TPU's lanetrack trick (per-lane
 // (value, column) trackers reduced once per block) exists to drop the
 // per-column cross-lane reduce; here that reduce is one __reduce_max_sync
-// in a chain of ~20 shuffles, and the mode keeps it: the best-column
-// snapshot and end positions stay exactly the base mode's.
+// at the end of the column's chain (sw_dp.cuh), and the mode keeps it: the
+// best-column snapshot and end positions stay exactly the base mode's.
 //
 // Dual mode (template flag Dual, blockmax with the quirk off; the JAX
 // kernel's dual-tier emission, pallas_sw.py:142-151, :405-412) emits both
@@ -36,6 +36,17 @@
 // the block's columns < valid_len and the warp reduces it once per 256
 // columns: K max ops per column and one reduce per block, off the column
 // chain.  Output (B, 2, ceil(R/256)).
+//
+// Gate mode (template flag Gate, any of the modes above; ops/gate.py, the
+// JAX kernel's bounded-radius gate pallas_sw.py:314-359): each column runs
+// the depth of shuffle scan that the previous column's masked max admits
+// (sw_dp.cuh has the exactness argument), and thread t <= 5 of the warp
+// counts the columns run at depth t into the launch's histogram.  The
+// outputs are the ungated kernel's.  The depth rides the column reduce the
+// best-hit branch already waits on: a compare per lane, a ballot, and one
+// switch per column over unrolled scans (sw_dp.cuh scan_depth), which on
+// the config-4 leaf beat a chain of one branch per scan step where most
+// columns take depth 0 and lost where most take depth 3 (PERF.md).
 //
 // The quirk is a template flag too.  As a runtime bool it left nvcc to
 // choose between a loop split on it and the quirk's shuffles behind
@@ -70,8 +81,8 @@ struct FwdArgs {
   int32_t* scratch;         // (B, 7, L) for GlobRow, else null
 };
 
-template <int KT, bool BlockMax, bool Quirk, bool Dual>
-__global__ void sw_forward_kernel(const FwdArgs a) {
+template <int KT, bool BlockMax, bool Quirk, bool Dual, bool Gate>
+__global__ void sw_forward_kernel(const FwdArgs a, const sw::GateArgs g) {
   static_assert(!Dual || (BlockMax && !Quirk), "dual: blockmax, quirk off");
   extern __shared__ __align__(16) unsigned char smem[];
   const int wpb = blockDim.x >> 5, w = threadIdx.x >> 5, t = threadIdx.x & 31;
@@ -102,6 +113,9 @@ __global__ void sw_forward_kernel(const FwdArgs a) {
   int16_t mc_v = 0;
   int bm_run = 0;  // blockmax: running max of the current 256-column block
   int w_run = 0;   // dual: this thread's running max over its wmask lanes
+  int hm = 0;      // gate: the previous column's masked max
+  unsigned steps = 0;  // gate: this warp's columns at depth t
+  const int lane_thr = Gate ? sw::gate_lane_thr(g, t) : 0;
   const int nblk = (a.R + sw::kBlockCols - 1) / sw::kBlockCols;
   int16_t* mc_row = BlockMax ? nullptr : a.maxcol + size_t(b) * a.R;
   int32_t* bm_row =
@@ -113,8 +127,13 @@ __global__ void sw_forward_kernel(const FwdArgs a) {
       code_v = cc < a.R ? a.ref[cc] : 0;
     }
     const int code = __shfl_sync(sw::kFull, code_v, lane);
+    const int depth = Gate ? sw::gate_depth(hm, lane_thr) : sw::kDepths;
     const int colmax = sw::dp_column<KT>(r, K, t, code, a.gapO, a.gapE,
-                                         quirk);
+                                         quirk, depth);
+    if constexpr (Gate) {
+      hm = colmax;
+      steps += depth == t;
+    }
     if (colmax > gmax) {  // warp-uniform
       gmax = colmax;
       end_ref = col;
@@ -152,6 +171,7 @@ __global__ void sw_forward_kernel(const FwdArgs a) {
       }
     }
   }
+  if constexpr (Gate) sw::gate_flush(g, t, steps);
   const int rl = a.read_len[b];
   const int er = sw::end_read_of<KT>(r, K, t, L, gmax, rl);
   if (t == 0) {
@@ -161,32 +181,41 @@ __global__ void sw_forward_kernel(const FwdArgs a) {
   }
 }
 
-template <int KT, bool BlockMax, bool Quirk, bool Dual = false>
-int launch_mode(const FwdArgs& a, cudaStream_t stream) {
+template <int KT, bool BlockMax, bool Quirk, bool Dual, bool Gate>
+int launch_gated(const FwdArgs& a, const sw::GateArgs& g,
+                 cudaStream_t stream) {
   int wpb;
   size_t smem;
   sw::launch_shape<KT>(a.n1, a.L, Quirk, &wpb, &smem);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        sw_forward_kernel<KT, BlockMax, Quirk, Dual>,
+        sw_forward_kernel<KT, BlockMax, Quirk, Dual, Gate>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
     if (e != cudaSuccess) return int(e);
   }
   const int grid = (a.B + wpb - 1) / wpb;
-  sw_forward_kernel<KT, BlockMax, Quirk, Dual>
-      <<<grid, wpb * 32, smem, stream>>>(a);
+  sw_forward_kernel<KT, BlockMax, Quirk, Dual, Gate>
+      <<<grid, wpb * 32, smem, stream>>>(a, g);
   return int(cudaGetLastError());
 }
 
+template <int KT, bool BlockMax, bool Quirk, bool Dual = false>
+int launch_mode(const FwdArgs& a, const sw::GateArgs* g,
+                cudaStream_t stream) {
+  if (g) return launch_gated<KT, BlockMax, Quirk, Dual, true>(a, *g, stream);
+  return launch_gated<KT, BlockMax, Quirk, Dual, false>(a, sw::GateArgs{},
+                                                        stream);
+}
+
 template <int KT>
-int launch(const FwdArgs& a, cudaStream_t stream) {
+int launch(const FwdArgs& a, const sw::GateArgs* g, cudaStream_t stream) {
   if (a.blockmax && a.wmask)
-    return launch_mode<KT, true, false, true>(a, stream);
+    return launch_mode<KT, true, false, true>(a, g, stream);
   if (a.blockmax)
-    return a.quirk ? launch_mode<KT, true, true>(a, stream)
-                   : launch_mode<KT, true, false>(a, stream);
-  return a.quirk ? launch_mode<KT, false, true>(a, stream)
-                 : launch_mode<KT, false, false>(a, stream);
+    return a.quirk ? launch_mode<KT, true, true>(a, g, stream)
+                   : launch_mode<KT, true, false>(a, g, stream);
+  return a.quirk ? launch_mode<KT, false, true>(a, g, stream)
+                 : launch_mode<KT, false, false>(a, g, stream);
 }
 
 }  // namespace
@@ -200,14 +229,17 @@ int sw_forward_scratch_per_read(int L) {
 
 // Returns the cudaError_t of the launch (0 on success).  Exactly one of
 // maxcol (base mode) and blockmax (blockmax mode, with valid_len) is set;
-// wmask (non-null: dual mode) needs blockmax and quirk 0.
+// wmask (non-null: dual mode) needs blockmax and quirk 0.  gate_thr
+// (non-null: gate mode) is a host array of 5 int thresholds, gate_hist the
+// device uint64[6] histogram the launch adds its steps to.
 int sw_forward_shared(const void* prof, const void* ref, const void* read_len,
                       const void* col_mask, const void* seg_id,
                       const void* seg_start, int B, int n1, int L, int R,
                       int gapO, int gapE, int quirk, void* score,
                       void* end_ref, void* end_read, void* maxcol,
                       void* blockmax, int valid_len, void* wmask,
-                      void* scratch, void* stream) {
+                      void* scratch, const void* gate_thr, void* gate_hist,
+                      void* stream) {
   if (B <= 0) return 0;
   if (wmask && (!blockmax || quirk)) return int(cudaErrorInvalidValue);
   FwdArgs a;
@@ -232,8 +264,11 @@ int sw_forward_shared(const void* prof, const void* ref, const void* read_len,
   a.blockmax = static_cast<int32_t*>(blockmax);
   a.valid_len = valid_len;
   a.scratch = static_cast<int32_t*>(scratch);
+  if (gate_thr && !gate_hist) return int(cudaErrorInvalidValue);
+  const sw::GateArgs g = sw::gate_args(gate_thr, gate_hist);
+  const sw::GateArgs* gp = gate_thr ? &g : nullptr;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  SW_DISPATCH_K(L / 32, launch, a, s)
+  SW_DISPATCH_K(L / 32, launch, a, gp, s)
 }
 
 const char* sw_error_string(int code) {

@@ -42,6 +42,11 @@
 // lane-pair and column) and the warp reduces it once per 256 columns, so
 // each read of the pair keeps its own word channel.
 //
+// Gate mode (template flag Gate, any mode; ops/gate.py, sw_dp.cuh): the
+// pair shares one scan, so a column runs the depth that the larger of the
+// two reads' previous column maxima admits, and the warp counts its
+// columns by depth as sw_forward.cu does (one step per pair).
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC -o libsw_forward_i16.so sw_forward_i16.cu
 
@@ -155,12 +160,21 @@ struct PGlobRow {
 template <int KT> struct PRowSel { using type = PRegRow<KT>; };
 template <> struct PRowSel<0> { using type = PGlobRow; };
 
+struct MaxS16x2 {
+  __device__ __forceinline__ unsigned operator()(unsigned a,
+                                                 unsigned b) const {
+    return __vmaxs2(a, b);
+  }
+};
+
 // One target column for both reads of the pair; returns the packed masked
 // column maxima (low: read 2p, high: read 2p+1), identical on every lane.
-// The steps are those of sw::dp_column with the quirk off.
+// The steps are those of sw::dp_column with the quirk off; depth: the
+// gate's scan steps (sw::kDepths = the whole row).
 template <int KT, class Row>
 __device__ __forceinline__ unsigned column_i16(Row& r, int K, int t,
-                                               int code, int gapO, int gapE) {
+                                               int code, int gapO, int gapE,
+                                               int depth = sw::kDepths) {
   const int KK = KT > 0 ? KT : K;
   const int base = t * KK;
   unsigned carry = __shfl_up_sync(sw::kFull, r.H(KK - 1), 1);
@@ -173,11 +187,7 @@ __device__ __forceinline__ unsigned column_i16(Row& r, int K, int t,
     r.H(k) = ht;
     tot = __viaddmax_s16x2(ht, pk((base + k) * gapE - gapO), tot);
   }
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const unsigned y = __shfl_up_sync(sw::kFull, tot, off);
-    if (t >= off) tot = __vmaxs2(tot, y);
-  }
+  tot = sw::scan_depth(tot, t, depth, MaxS16x2{});
   unsigned run = __shfl_up_sync(sw::kFull, tot, 1);
   if (t == 0) run = pk(kNeg16);
   unsigned cmax = 0u;
@@ -213,8 +223,8 @@ __device__ __forceinline__ int end_read_i16(Row& r, int K, int t, int L,
   return cand == L ? rl - 1 : cand;
 }
 
-template <int KT, bool BlockMax, bool Dual>
-__global__ void sw_forward_i16_kernel(const I16Args a) {
+template <int KT, bool BlockMax, bool Dual, bool Gate>
+__global__ void sw_forward_i16_kernel(const I16Args a, const sw::GateArgs g) {
   static_assert(!Dual || BlockMax, "dual is a blockmax mode");
   extern __shared__ __align__(16) unsigned char smem[];
   const int wpb = blockDim.x >> 5, w = threadIdx.x >> 5, t = threadIdx.x & 31;
@@ -254,6 +264,9 @@ __global__ void sw_forward_i16_kernel(const I16Args a) {
   unsigned mc_v = 0u;
   unsigned bm_v = 0u;  // blockmax: packed running max of the current block
   unsigned w_v = 0u;   // dual: packed running max over the wmask lanes
+  int hm = 0;          // gate: the pair's larger previous column max
+  unsigned steps = 0;  // gate: this warp's columns at depth t
+  const int lane_thr = Gate ? sw::gate_lane_thr(g, t) : 0;
   const int nblk = (a.R + sw::kBlockCols - 1) / sw::kBlockCols;
   const int stride = Dual ? 2 * nblk : nblk;  // block maxima per read
   int16_t* mca = BlockMax ? nullptr : a.maxcol + size_t(ba) * a.R;
@@ -266,8 +279,14 @@ __global__ void sw_forward_i16_kernel(const I16Args a) {
       code_v = cc < a.R ? a.ref[cc] : 0;
     }
     const int code = __shfl_sync(sw::kFull, code_v, lane);
-    const unsigned cm = column_i16<KT>(r, K, t, code, a.gapO, a.gapE);
+    const int depth = Gate ? sw::gate_depth(hm, lane_thr) : sw::kDepths;
+    const unsigned cm = column_i16<KT>(r, K, t, code, a.gapO, a.gapE,
+                                       depth);
     const int ca = lo16(cm), cb = hi16(cm);
+    if constexpr (Gate) {
+      hm = max(ca, cb);
+      steps += depth == t;
+    }
     const bool ua = ca > gmax_a, ub = cb > gmax_b;
     if (ua || ub) {  // warp-uniform
       if (ua) { gmax_a = ca; er_a = col; }
@@ -317,6 +336,7 @@ __global__ void sw_forward_i16_kernel(const I16Args a) {
       }
     }
   }
+  if constexpr (Gate) sw::gate_flush(g, t, steps);
   const int ea = end_read_i16<KT>(r, K, t, L, 0, gmax_a, a.read_len[ba]);
   const int eb = has_b ? end_read_i16<KT>(r, K, t, L, 1, gmax_b,
                                           a.read_len[bb])
@@ -333,30 +353,38 @@ __global__ void sw_forward_i16_kernel(const I16Args a) {
   }
 }
 
-template <int KT, bool BlockMax, bool Dual = false>
-int launch_mode(const I16Args& a, cudaStream_t stream) {
+template <int KT, bool BlockMax, bool Dual, bool Gate>
+int launch_gated(const I16Args& a, const sw::GateArgs& g,
+                 cudaStream_t stream) {
   const size_t per_warp = KT > 0 ? size_t(a.n1) * a.L * 4 : 0;
   int wpb = 4;
   while (wpb > 1 && wpb * per_warp > 48 * 1024) wpb >>= 1;
   const size_t smem = wpb * per_warp;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        sw_forward_i16_kernel<KT, BlockMax, Dual>,
+        sw_forward_i16_kernel<KT, BlockMax, Dual, Gate>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
     if (e != cudaSuccess) return int(e);
   }
   const int pairs = (a.B + 1) / 2;
   const int grid = (pairs + wpb - 1) / wpb;
-  sw_forward_i16_kernel<KT, BlockMax, Dual>
-      <<<grid, wpb * 32, smem, stream>>>(a);
+  sw_forward_i16_kernel<KT, BlockMax, Dual, Gate>
+      <<<grid, wpb * 32, smem, stream>>>(a, g);
   return int(cudaGetLastError());
 }
 
+template <int KT, bool BlockMax, bool Dual = false>
+int launch_mode(const I16Args& a, const sw::GateArgs* g,
+                cudaStream_t stream) {
+  if (g) return launch_gated<KT, BlockMax, Dual, true>(a, *g, stream);
+  return launch_gated<KT, BlockMax, Dual, false>(a, sw::GateArgs{}, stream);
+}
+
 template <int KT>
-int launch(const I16Args& a, cudaStream_t stream) {
-  if (a.blockmax && a.wmask) return launch_mode<KT, true, true>(a, stream);
-  return a.blockmax ? launch_mode<KT, true>(a, stream)
-                    : launch_mode<KT, false>(a, stream);
+int launch(const I16Args& a, const sw::GateArgs* g, cudaStream_t stream) {
+  if (a.blockmax && a.wmask) return launch_mode<KT, true, true>(a, g, stream);
+  return a.blockmax ? launch_mode<KT, true>(a, g, stream)
+                    : launch_mode<KT, false>(a, g, stream);
 }
 
 }  // namespace
@@ -370,13 +398,15 @@ int sw_forward_i16_scratch_per_pair(int L) {
 
 // Returns the cudaError_t of the launch (0 on success).  Exactly one of
 // maxcol (base mode) and blockmax (blockmax mode, with valid_len) is set;
-// wmask (non-null: dual mode) needs blockmax.
+// wmask (non-null: dual mode) needs blockmax.  gate_thr/gate_hist: as
+// sw_forward_shared's.
 int sw_forward_shared_i16(const void* prof, const void* ref,
                           const void* read_len, const void* col_mask, int B,
                           int n1, int L, int R, int gapO, int gapE,
                           void* score, void* end_ref, void* end_read,
                           void* maxcol, void* blockmax, int valid_len,
-                          void* wmask, void* scratch, void* stream) {
+                          void* wmask, void* scratch, const void* gate_thr,
+                          void* gate_hist, void* stream) {
   if (B <= 0) return 0;
   if (wmask && !blockmax) return int(cudaErrorInvalidValue);
   I16Args a;
@@ -398,8 +428,11 @@ int sw_forward_shared_i16(const void* prof, const void* ref,
   a.blockmax = static_cast<int32_t*>(blockmax);
   a.valid_len = valid_len;
   a.scratch = static_cast<unsigned*>(scratch);
+  if (gate_thr && !gate_hist) return int(cudaErrorInvalidValue);
+  const sw::GateArgs g = sw::gate_args(gate_thr, gate_hist);
+  const sw::GateArgs* gp = gate_thr ? &g : nullptr;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  SW_DISPATCH_K(L / 32, launch, a, s)
+  SW_DISPATCH_K(L / 32, launch, a, gp, s)
 }
 
 const char* sw_error_string(int code) {

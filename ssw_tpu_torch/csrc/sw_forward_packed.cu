@@ -45,6 +45,11 @@
 // What bounds it: as sw_forward.cu, integer ALU work and the shuffle chain.
 // A read costs what it costs unpacked at a lane width of 32*K >= its slot.
 //
+// Gate mode (template flag Gate; ops/gate.py, sw_dp.cuh): the slot warp's
+// columns run the scan depth its previous masked column max admits, with
+// thresholds for its K lanes per thread against the slot bound, and the
+// warp counts its columns by depth, as in sw_forward.cu.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC -o libsw_forward_packed.so sw_forward_packed.cu
 
@@ -112,8 +117,9 @@ __device__ __forceinline__ void attach_slot(sw::GlobRow& r, unsigned char*,
   __syncwarp();
 }
 
-template <int KT, bool Quirk, bool Dual>
-__global__ void sw_forward_packed_kernel(const PackArgs a) {
+template <int KT, bool Quirk, bool Dual, bool Gate>
+__global__ void sw_forward_packed_kernel(const PackArgs a,
+                                         const sw::GateArgs g) {
   static_assert(!(Dual && Quirk), "dual needs the quirk off");
   extern __shared__ __align__(16) unsigned char smem[];
   const int wpb = blockDim.x >> 5, w = threadIdx.x >> 5, t = threadIdx.x & 31;
@@ -151,6 +157,9 @@ __global__ void sw_forward_packed_kernel(const PackArgs a) {
 
   int gmax = 0, end_ref = -1, code_v = 0;
   int bm_run = 0, w_run = 0;
+  int hm = 0;          // gate: the previous column's masked max
+  unsigned steps = 0;  // gate: this warp's columns at depth t
+  const int lane_thr = Gate ? sw::gate_lane_thr(g, t) : 0;
   const int nblk = (a.R + sw::kBlockCols - 1) / sw::kBlockCols;
   const int vl = min(a.valid_len, a.R);
   int32_t* bm_row = a.blockmax + size_t(b) * nblk * (Dual ? 2 : 1);
@@ -161,8 +170,13 @@ __global__ void sw_forward_packed_kernel(const PackArgs a) {
       code_v = cc < vl ? a.ref[cc] : 0;
     }
     const int code = __shfl_sync(sw::kFull, code_v, lane);
+    const int depth = Gate ? sw::gate_depth(hm, lane_thr) : sw::kDepths;
     const int colmax = sw::dp_column<KT>(r, K, t, code, a.gapO, a.gapE,
-                                         Quirk);
+                                         Quirk, depth);
+    if constexpr (Gate) {
+      hm = colmax;
+      steps += depth == t;
+    }
     if (colmax > gmax) {  // warp-uniform
       gmax = colmax;
       end_ref = col;
@@ -188,6 +202,7 @@ __global__ void sw_forward_packed_kernel(const PackArgs a) {
       bm_run = 0;
     }
   }
+  if constexpr (Gate) sw::gate_flush(g, t, steps);
   // blocks past valid_len get no column
   for (int blk = (vl + sw::kBlockCols - 1) / sw::kBlockCols + t; blk < nblk;
        blk += 32) {
@@ -202,28 +217,37 @@ __global__ void sw_forward_packed_kernel(const PackArgs a) {
   }
 }
 
-template <int KT, bool Quirk, bool Dual>
-int launch_mode(const PackArgs& a, cudaStream_t stream) {
+template <int KT, bool Quirk, bool Dual, bool Gate>
+int launch_gated(const PackArgs& a, const sw::GateArgs& g,
+                 cudaStream_t stream) {
   int wpb;
   size_t smem;
   sw::launch_shape<KT>(a.n1, a.Lw, Quirk, &wpb, &smem);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        sw_forward_packed_kernel<KT, Quirk, Dual>,
+        sw_forward_packed_kernel<KT, Quirk, Dual, Gate>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
     if (e != cudaSuccess) return int(e);
   }
   const int grid = (a.B + wpb - 1) / wpb;
-  sw_forward_packed_kernel<KT, Quirk, Dual>
-      <<<grid, wpb * 32, smem, stream>>>(a);
+  sw_forward_packed_kernel<KT, Quirk, Dual, Gate>
+      <<<grid, wpb * 32, smem, stream>>>(a, g);
   return int(cudaGetLastError());
 }
 
+template <int KT, bool Quirk, bool Dual>
+int launch_mode(const PackArgs& a, const sw::GateArgs* g,
+                cudaStream_t stream) {
+  if (g) return launch_gated<KT, Quirk, Dual, true>(a, *g, stream);
+  return launch_gated<KT, Quirk, Dual, false>(a, sw::GateArgs{}, stream);
+}
+
 template <int KT>
-int launch(const PackArgs& a, bool quirk, bool dual, cudaStream_t stream) {
-  if (dual) return launch_mode<KT, false, true>(a, stream);
-  return quirk ? launch_mode<KT, true, false>(a, stream)
-               : launch_mode<KT, false, false>(a, stream);
+int launch(const PackArgs& a, const sw::GateArgs* g, bool quirk, bool dual,
+           cudaStream_t stream) {
+  if (dual) return launch_mode<KT, false, true>(a, g, stream);
+  return quirk ? launch_mode<KT, true, false>(a, g, stream)
+               : launch_mode<KT, false, false>(a, g, stream);
 }
 
 }  // namespace
@@ -238,13 +262,15 @@ int sw_forward_packed_scratch_per_read(int Lw, int n1) {
 
 // Returns the cudaError_t of the launch (0 on success).  Lw: lanes per warp
 // (a multiple of 32 >= every slot length); nb: quirk lane blocks per slot
-// (16 byte tier, 8 word); dual needs quirk 0.
+// (16 byte tier, 8 word); dual needs quirk 0.  gate_thr/gate_hist: as
+// sw_forward.cu's sw_forward_shared.
 int sw_forward_packed(const void* prof, const void* ref, const void* so,
                       const void* sl, const void* rl_s, const void* flat_idx,
                       int B, int n1, int W, int S, int Lw, int R,
                       int valid_len, int gapO, int gapE, int quirk, int nb,
                       int dual, void* score, void* end_ref, void* end_read,
-                      void* blockmax, void* scratch, void* stream) {
+                      void* blockmax, void* scratch, const void* gate_thr,
+                      void* gate_hist, void* stream) {
   if (B <= 0) return 0;
   if (dual && quirk) return int(cudaErrorInvalidValue);
   PackArgs a;
@@ -269,8 +295,11 @@ int sw_forward_packed(const void* prof, const void* ref, const void* so,
   a.end_read = static_cast<int32_t*>(end_read);
   a.blockmax = static_cast<int32_t*>(blockmax);
   a.scratch = static_cast<int32_t*>(scratch);
+  if (gate_thr && !gate_hist) return int(cudaErrorInvalidValue);
+  const sw::GateArgs g = sw::gate_args(gate_thr, gate_hist);
+  const sw::GateArgs* gp = gate_thr ? &g : nullptr;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  SW_DISPATCH_K(Lw / 32, launch, a, quirk != 0, dual != 0, s)
+  SW_DISPATCH_K(Lw / 32, launch, a, gp, quirk != 0, dual != 0, s)
 }
 
 const char* sw_error_string(int code) {

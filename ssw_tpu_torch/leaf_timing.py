@@ -8,7 +8,8 @@ the target padded to 2^20 columns, DNA m2/x2/o3/e1.  For each tree given
 (a checkout, e.g. a parent commit unpacked with `git archive`), in its own
 process and in the order given, prints one JSON line of CUDA-event times in
 ms: the int32 kernel with the quirk off and on, and the int16 tier, in base
-mode and, where the tree has it, in blockmax mode.  Needs a CUDA card.
+mode and, where the tree has them, in blockmax mode and with the
+bounded-radius gate.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -70,6 +71,17 @@ def _time_tree(tree: str) -> dict:
         bm = {"blockmax": True, "valid_len": len(codes)}
         res.update(int32_bm_ms=ms(False, bm), int32_quirk_bm_ms=ms(True, bm),
                    i16_bm_ms=ms(False, dict(bm, max_sub=2)))
+    if "gate" in inspect.signature(cuda_sw.forward_shared).parameters:
+        # the bounded-radius gate: the card's tiers for K = 4, and every
+        # column forced to depth 0 (thresholds above any column max: the
+        # most the gate can save; the outputs are then not exact)
+        from ssw_tpu_torch.ops import gate
+        for label, thr in (("gate", gate.card_thresholds(4, 128, 3, 1, 2)),
+                           ("depth0", (1 << 27,) * gate.DEPTHS)):
+            res[f"int32_bm_{label}_ms"] = ms(False, dict(bm, gate=thr))
+            res[f"i16_bm_{label}_ms"] = ms(False, dict(bm, max_sub=2,
+                                                        gate=thr))
+            res[f"int32_quirk_{label}_ms"] = ms(True, {"gate": thr})
     return res
 
 

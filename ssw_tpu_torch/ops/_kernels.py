@@ -33,16 +33,16 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "sw_forward": {
         "sw_forward_shared": [_P] * 6 + [_I] * 7 + [_P] * 5 + [_I]
-                             + [_P] * 3,
+                             + [_P] * 5,
         "sw_forward_scratch_per_read": [_I],
     },
     "sw_forward_i16": {
         "sw_forward_shared_i16": [_P] * 4 + [_I] * 6 + [_P] * 5 + [_I]
-                                 + [_P] * 3,
+                                 + [_P] * 5,
         "sw_forward_i16_scratch_per_pair": [_I],
     },
     "sw_forward_packed": {
-        "sw_forward_packed": [_P] * 6 + [_I] * 12 + [_P] * 6,
+        "sw_forward_packed": [_P] * 6 + [_I] * 12 + [_P] * 8,
         "sw_forward_packed_scratch_per_read": [_I] * 2,
     },
     "sw_perread": {

@@ -12,14 +12,24 @@ kernel, or the call raises: there is no fallback.  The wrapper checks
 device, dtype, shape and contiguity, allocates the outputs on the input's
 device, launches on PyTorch's current stream without synchronising, raises
 if the launch reports an error, and counts the launch in LAUNCHES.
+
+The three forward kernels take the bounded-radius gate (ops/gate.py) as
+gate=, per-depth thresholds: the launch runs the kernel's Gate variant,
+is counted in GATED too, and adds its warp-column steps by scan depth to a
+device histogram that gate_steps() reads (a sync; only tests and
+chip_smoke.py read it).  On the CPU the plain versions run the same gated
+scan and count the same steps.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
-from ssw_tpu_torch.ops import _kernels, common, pack, scan_sw
+from ssw_tpu_torch.ops import _kernels, common, gate as gate_mod, pack, \
+    scan_sw
 
 # int32 operations per lane-cell and column that the recurrence needs, as
 # sw_dp.cuh dp_column issues them (DPX fusions counted as one): h~ (add-max
@@ -54,6 +64,10 @@ LAUNCHES = {"forward_shared": 0, "forward_shared_i16": 0,
             "forward_shared_dual": 0, "forward_shared_i16_dual": 0,
             "forward_shared_packed": 0, "forward_shared_packed_dual": 0,
             "forward_perread": 0}
+# of those, the launches that ran with the gate (forward kernels only)
+GATED = {name: 0 for name in LAUNCHES if name != "forward_perread"}
+# per device: warp-column steps by scan depth 0..5 of the gated launches
+_STEPS: dict = {}
 
 
 def i16_exact(L: int, gapO: int, gapE: int, max_sub: int | None,
@@ -109,11 +123,32 @@ def _ptr(x):
     return None if x is None else x.data_ptr()
 
 
+def _steps(dev) -> torch.Tensor:
+    """The (6,) int64 gate-step histogram of device dev."""
+    key = str(dev)
+    if key not in _STEPS:
+        _STEPS[key] = torch.zeros(gate_mod.DEPTHS + 1, dtype=torch.int64,
+                                  device=dev)
+    return _STEPS[key]
+
+
+def _gate_args(gate, dev):
+    """(host int[5] thresholds, histogram pointer) for a launch, or (None,
+    None) without the gate.  The array must outlive the launch call."""
+    if gate is None:
+        return None, None
+    thr = tuple(int(t) for t in gate)
+    if len(thr) != gate_mod.DEPTHS or list(thr) != sorted(thr):
+        raise ValueError(f"gate: {gate!r} is not {gate_mod.DEPTHS} "
+                         f"non-decreasing thresholds")
+    return (ctypes.c_int * gate_mod.DEPTHS)(*thr), _steps(dev).data_ptr()
+
+
 def _launch_shared(profile, ref, read_len, col_mask, seg_id, seg_start,
                    gapO, gapE, quirk, i16, blockmax=False, valid_len=None,
-                   wmask=None):
+                   wmask=None, gate=None):
     """One launch of the int32 kernel, or of the int16 tier (quirk off), in
-    base, blockmax or dual (wmask) mode; not counted."""
+    base, blockmax or dual (wmask) mode, gated with gate=; not counted."""
     B, n1, L, dev = _geometry_checks(profile, read_len, col_mask, seg_id,
                                      seg_start)
     R = int(ref.shape[0])
@@ -137,6 +172,7 @@ def _launch_shared(profile, ref, read_len, col_mask, seg_id, seg_start,
         mode = (maxcol.data_ptr(), None, 0)
     outs = (score.data_ptr(), end_ref.data_ptr(), end_read.data_ptr(),
             *mode)
+    thr, hist = _gate_args(gate, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if i16:
@@ -146,7 +182,7 @@ def _launch_shared(profile, ref, read_len, col_mask, seg_id, seg_start,
             rc = lib.sw_forward_shared_i16(
                 profile.data_ptr(), ref.data_ptr(), read_len.data_ptr(),
                 col_mask.data_ptr(), B, n1, L, R, int(gapO), int(gapE),
-                *outs, _ptr(wmask), _ptr(scratch), stream)
+                *outs, _ptr(wmask), _ptr(scratch), thr, hist, stream)
         else:
             lib = _kernels.load("sw_forward")
             scratch = _scratch(lib, "sw_forward_scratch_per_read", B, L,
@@ -155,7 +191,7 @@ def _launch_shared(profile, ref, read_len, col_mask, seg_id, seg_start,
                 profile.data_ptr(), ref.data_ptr(), read_len.data_ptr(),
                 col_mask.data_ptr(), seg_id.data_ptr(), seg_start.data_ptr(),
                 B, n1, L, R, int(gapO), int(gapE), int(bool(quirk)), *outs,
-                _ptr(wmask), _ptr(scratch), stream)
+                _ptr(wmask), _ptr(scratch), thr, hist, stream)
     _raise_on(lib, rc, shared_kernel_name(i16, blockmax, wmask is not None))
     return score, end_ref, end_read, maxcol
 
@@ -201,7 +237,7 @@ def shared_kernel_name(i16: bool, blockmax: bool, dual: bool = False) -> str:
 def forward_shared(profile, ref, read_len, col_mask, seg_id, seg_start,
                    gapO: int, gapE: int, quirk: bool = True,
                    max_sub: int | None = None, blockmax: bool = False,
-                   valid_len: int | None = None, wmask=None):
+                   valid_len: int | None = None, wmask=None, gate=None):
     """Batched forward DP against one shared target.  Returns (score,
     end_ref, end_read (B,) int32, maxcol (B, R) int16 in [0, 32767]).
 
@@ -218,38 +254,42 @@ def forward_shared(profile, ref, read_len, col_mask, seg_id, seg_start,
     wmask (B, L) bool, with blockmax and the quirk off: the dual tier.
     col_mask holds the byte tier's rows and wmask the word tier's, and the
     last output is (B, 2, ceil(R/256)): both tiers' block maxima from one
-    pass (counted as forward_shared[_i16]_dual)."""
-    if profile.device.type == "cpu":
-        return scan_sw.forward_shared_ref(profile, ref, read_len, col_mask,
-                                          seg_id, seg_start, gapO, gapE,
-                                          quirk, blockmax=blockmax,
-                                          valid_len=valid_len, wmask=wmask)
+    pass (counted as forward_shared[_i16]_dual).
+
+    gate: the bounded-radius gate's per-depth thresholds for K = L/32
+    (ops/gate.py), or None; the results are the same (counted in GATED)."""
     i16 = i16_exact(int(profile.shape[2]), gapO, gapE, max_sub, quirk)
+    name = shared_kernel_name(i16, blockmax, wmask is not None)
+    if profile.device.type == "cpu":
+        res = scan_sw.forward_shared_ref(
+            profile, ref, read_len, col_mask, seg_id, seg_start, gapO, gapE,
+            quirk, blockmax=blockmax, valid_len=valid_len, wmask=wmask,
+            gate=gate, pairs=i16, steps=gate is not None)
+        return _count_plain_steps(res, gate)
     if i16:
         _i16_parity(profile.device)
     out = _launch_shared(profile, ref, read_len, col_mask, seg_id,
                          seg_start, gapO, gapE, quirk, i16, blockmax,
-                         valid_len, wmask)
-    LAUNCHES[shared_kernel_name(i16, blockmax, wmask is not None)] += 1
+                         valid_len, wmask, gate)
+    LAUNCHES[name] += 1
+    GATED[name] += gate is not None
     return out
 
 
-# register variants of the warp's lanes per thread (csrc/sw_dp.cuh reg_k)
-_REG_K = (2, 4, 6, 8, 10, 12, 14, 16, 20, 24, 28, 32)
-
-
-def packed_lanes(longest: int) -> int:
-    """Lanes per warp of the packed kernel: 32*K for the smallest register
-    variant K that holds the longest slot (32*ceil past 1024 lanes)."""
-    k = max(1, -(-int(longest) // 32))
-    return 32 * next((r for r in _REG_K if r >= k), k)
+def _count_plain_steps(res, gate):
+    """A plain version's outputs; its gate steps go to the CPU histogram."""
+    if gate is None:
+        return res
+    out, hist = res
+    _steps(hist.device).add_(hist)
+    return out
 
 
 def forward_shared_packed(profile, ref, so, sl, rl_s, flat_idx, gapO: int,
                           gapE: int, max_sub: int | None = None,
                           valid_len: int | None = None, quirk: bool = False,
                           word: bool = False, dual: bool = False,
-                          slot_max: int | None = None):
+                          slot_max: int | None = None, gate=None):
     """Forward DP of lane-packed reads (ops/pack.py) against one shared
     target, always int32, in blockmax mode.  profile (n_rows, n+1, W) int8
     over the packed codes, ref (R,) int32, so/sl/rl_s (n_rows, S) int32
@@ -260,12 +300,15 @@ def forward_shared_packed(profile, ref, so, sl, rl_s, flat_idx, gapO: int,
     quirk: the lane-block E quirk (word: its 8-block geometry), within the
     QBUMP span guard (pack.check_quirk_span raises outside it).  slot_max:
     the longest slot, max(sl), when the caller knows it (else read from sl,
-    a device sync).  Counted as forward_shared_packed[_dual]."""
+    a device sync).  gate: per-depth thresholds for K =
+    pack.packed_lanes(slot_max)/32 (ops/gate.py).  Counted as forward_shared_packed[_dual]
+    (and in GATED with gate=)."""
     if profile.device.type == "cpu":
-        return scan_sw.forward_shared_ref_packed(
+        res = scan_sw.forward_shared_ref_packed(
             profile, ref, so, sl, rl_s, flat_idx, gapO, gapE,
             max_sub=max_sub, valid_len=valid_len, quirk=quirk, word=word,
-            dual=dual)
+            dual=dual, gate=gate, steps=gate is not None)
+        return _count_plain_steps(res, gate)
     if dual and quirk:
         raise ValueError("the dual tier needs the quirk off")
     if slot_max is None:
@@ -284,7 +327,7 @@ def forward_shared_packed(profile, ref, so, sl, rl_s, flat_idx, gapO: int,
     for name, x in (("so", so), ("sl", sl), ("rl_s", rl_s)):
         _check(name, x, torch.int32, (n_rows, S), dev)
     _check("flat_idx", flat_idx, torch.int32, (B,), dev)
-    Lw = packed_lanes(slot_max)
+    Lw = pack.packed_lanes(slot_max)
     vl = R if valid_len is None else min(int(valid_len), R)
     nblk = (R + scan_sw.BM - 1) // scan_sw.BM
     score = torch.empty(B, dtype=torch.int32, device=dev)
@@ -296,6 +339,7 @@ def forward_shared_packed(profile, ref, so, sl, rl_s, flat_idx, gapO: int,
     n = lib.sw_forward_packed_scratch_per_read(Lw, n1)
     scratch = (torch.empty((B, n), dtype=torch.int32, device=dev)
                if n else None)
+    thr, hist = _gate_args(gate, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.sw_forward_packed(
@@ -303,10 +347,12 @@ def forward_shared_packed(profile, ref, so, sl, rl_s, flat_idx, gapO: int,
             rl_s.data_ptr(), flat_idx.data_ptr(), B, n1, W, S, Lw, R, vl,
             int(gapO), int(gapE), int(bool(quirk)), 8 if word else 16,
             int(bool(dual)), score.data_ptr(), end_ref.data_ptr(),
-            end_read.data_ptr(), maxcol.data_ptr(), _ptr(scratch), stream)
+            end_read.data_ptr(), maxcol.data_ptr(), _ptr(scratch), thr, hist,
+            stream)
     name = "forward_shared_packed" + ("_dual" if dual else "")
     _raise_on(lib, rc, name)
     LAUNCHES[name] += 1
+    GATED[name] += gate is not None
     return score, end_ref, end_read, maxcol
 
 
@@ -348,9 +394,31 @@ def forward_perread(profile, refw, read_len, col_mask, seg_id, seg_start,
 
 
 def reset_launches():
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    """Set LAUNCHES and GATED to 0."""
+    for counts in (LAUNCHES, GATED):
+        for name in counts:
+            counts[name] = 0
 
 
 def launch_counts() -> dict:
     return dict(LAUNCHES)
+
+
+def gated_counts() -> dict:
+    return dict(GATED)
+
+
+def reset_gate_steps():
+    for hist in _STEPS.values():
+        hist.zero_()
+
+
+def gate_steps() -> list[int]:
+    """Warp-column steps of the gated launches (and of the plain versions
+    on the CPU) by scan depth 0..5 since reset_gate_steps, summed over
+    devices; reading a card's histogram synchronises it."""
+    total = [0] * (gate_mod.DEPTHS + 1)
+    for hist in _STEPS.values():
+        for m, n in enumerate(hist.tolist()):
+            total[m] += n
+    return total

@@ -47,6 +47,17 @@ def pack_bound(longest: int) -> int:
     return 1 << (max(int(longest), 1) - 1).bit_length()
 
 
+# register variants of the kernels' lanes per thread (csrc/sw_dp.cuh reg_k)
+REG_K = (2, 4, 6, 8, 10, 12, 14, 16, 20, 24, 28, 32)
+
+
+def packed_lanes(longest: int) -> int:
+    """Lanes per warp of the packed kernel: 32*K for the smallest register
+    variant K that holds the longest slot (32*ceil past 1024 lanes)."""
+    k = max(1, -(-int(longest) // 32))
+    return 32 * next((r for r in REG_K if r >= k), k)
+
+
 def quirk_span_ok(longest: int, max_sub: int, gapO: int, gapE: int) -> bool:
     """Whether the quirk's block bias separation QBUMP stays above the
     slot-local value span pack_bound*(max_sub+gapE)+gapO, with `longest`

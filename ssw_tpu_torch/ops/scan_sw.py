@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from ssw_tpu_torch.ops import gate as gate_mod
 from ssw_tpu_torch.ops import pack
 
 NEG = -(2 ** 28)
@@ -35,20 +36,48 @@ def _shift_right(x, fill: int):
     return torch.cat([col, x[:, :-1]], dim=1)
 
 
+def _truncated_prefix(c, depth):
+    """The exclusive prefix max of c (B, L) along the row as a warp of 32
+    threads of K = L/32 consecutive lanes computes it when read b's column
+    runs depth[b] of the 5 shuffle steps (csrc/sw_dp.cuh dp_column): the
+    thread totals, depth Hillis-Steele steps over them and the `run` shift
+    give thread t the totals of threads t - 2^depth .. t - 1, and the
+    in-thread sweep adds the lanes before p in its own thread.  Depth 5 is
+    the whole prefix."""
+    B, L = c.shape
+    if L % 32:
+        raise ValueError(f"L = {L}: the gated scan models 32 threads")
+    K = L // 32
+    ct = c.view(B, 32, K)
+    tot = ct.amax(dim=2)
+    for s in range(gate_mod.DEPTHS):
+        y = torch.nn.functional.pad(tot[:, :-(1 << s)], (1 << s, 0),
+                                    value=NEG)
+        tot = torch.where((depth > s)[:, None], torch.maximum(tot, y), tot)
+    run = _shift_right(tot, NEG)
+    seq = torch.cat([run[:, :, None], ct], dim=2)
+    return torch.cummax(seq, dim=2).values[:, :, :K].reshape(B, L)
+
+
 def _column_update(sub, state, gapO, gapE, decay, seg_bias, seg_reset,
-                   col_mask, col_idx, quirk=True, gate=True):
+                   col_mask, col_idx, quirk=True, gate=True, depth=None):
     """One ref column for the whole batch.  sub: (B, L) substitution scores.
 
     quirk=False drops the lane-block E restriction; valid (bit-identical)
     whenever min(mat) >= -2*gapE, where an adjacent insertion+deletion can
-    never beat the substitution it replaces (see core/oracle.py)."""
+    never beat the substitution it replaces (see core/oracle.py).  gate:
+    (B,) bool, which reads may take a new best hit.  depth: (B,) scan
+    depths of the bounded-radius gate (None: the whole prefix max)."""
     H, E, gmax, end_ref, h_best = state
     h_diag = _shift_right(H, 0) + sub
     h_tilde = torch.maximum(h_diag, E).clamp_min_(0)
     c = h_tilde - gapO + decay
-    # full prefix-max -> F -> H
-    cm = torch.cummax(c, dim=1).values
-    F = (_shift_right(cm, NEG) - decay + gapE).clamp_min_(0)
+    # prefix-max (full, or the gate's truncated scan) -> F -> H
+    if depth is None:
+        prev = _shift_right(torch.cummax(c, dim=1).values, NEG)
+    else:
+        prev = _truncated_prefix(c, depth)
+    F = (prev - decay + gapE).clamp_min_(0)
     H = torch.maximum(h_tilde, F)
     if quirk:
         # lane-block segmented prefix-max -> F_loc -> the H the E-update sees
@@ -97,7 +126,8 @@ def _finalize(state, read_len, L):
 def forward_shared_ref(profile, ref, read_len, col_mask, seg_id, seg_start,
                        gapO: int, gapE: int, quirk: bool = True,
                        blockmax: bool = False, valid_len: int | None = None,
-                       wmask=None):
+                       wmask=None, gate=None, pairs: bool = False,
+                       steps: bool = False):
     """Forward pass of a read batch against one shared target.
 
     Returns (score (B,), end_ref (B,), end_read (B,), max_column (B, R)
@@ -114,7 +144,15 @@ def forward_shared_ref(profile, ref, read_len, col_mask, seg_id, seg_start,
     of it), and the block maxima come back (B, 2, ceil(R/BM)): channel 0
     over col_mask lanes, channel 1 over wmask lanes.  With the quirk off the
     two tiers differ only in which pad rows feed the column maxima, so one
-    pass answers both."""
+    pass answers both.
+
+    gate: per-depth thresholds of the bounded-radius gate (ops/gate.py):
+    each read's column runs the truncated scan of the depth its previous
+    column's masked max selects, as the kernels do; the outputs do not
+    change.  pairs: the int16 tier's warps (reads 2p and 2p+1 share one
+    depth, from the larger of their two maxima).  steps: also return the
+    (6,) int64 count of warp-column steps by depth (one per pair with
+    pairs), as the kernels' histogram counts them."""
     B, _, L = profile.shape
     dev = profile.device
     dual = wmask is not None
@@ -132,10 +170,25 @@ def forward_shared_ref(profile, ref, read_len, col_mask, seg_id, seg_start,
     if dual:
         wmask = wmask.to(torch.bool)
         mcw = torch.empty((R, B), dtype=_I32, device=dev)
+    hist = torch.zeros(gate_mod.DEPTHS + 1, dtype=torch.int64, device=dev)
+    hm = torch.zeros(B, dtype=_I32, device=dev)  # colmax(j - 1), lag 1
+    depth = None
+    if gate is not None:  # depth = #{m : hm > thr[m]}
+        thr = torch.tensor(gate, dtype=_I32, device=dev)
     for j in range(R):
+        if gate is not None:
+            if pairs:  # one depth per warp of two reads
+                hp = torch.nn.functional.pad(hm, (0, B % 2)).view(-1, 2)
+                dp = torch.bucketize(hp.amax(dim=1), thr)
+                depth = dp.repeat_interleave(2)[:B]
+            else:
+                dp = depth = torch.bucketize(hm, thr)
+            if steps:
+                hist += torch.bincount(dp, minlength=gate_mod.DEPTHS + 1)
         state, mc[j] = _column_update(prof_t[codes[j]], state, gapO, gapE,
                                       decay, seg_bias, seg_reset, col_mask,
-                                      j, quirk)
+                                      j, quirk, depth=depth)
+        hm = mc[j]
         if dual:
             mcw[j] = torch.where(wmask, state[0], 0).amax(dim=1)
     score, end_ref, end_read = _finalize(state, read_len, L)
@@ -144,11 +197,13 @@ def forward_shared_ref(profile, ref, read_len, col_mask, seg_id, seg_start,
         bm = blockmax_reduce(mc.t(), vl)
         if dual:
             bm = torch.stack([bm, blockmax_reduce(mcw.t(), vl)], dim=1)
-        return score, end_ref, end_read, bm
-    # clamp at the reference word kernel's saturation point before the
-    # narrowing (ref: _mm_adds_epi16 saturates at 32767)
-    return (score, end_ref, end_read,
-            mc.clamp_max(32767).to(torch.int16).t().contiguous())
+        out = (score, end_ref, end_read, bm)
+    else:
+        # clamp at the reference word kernel's saturation point before the
+        # narrowing (ref: _mm_adds_epi16 saturates at 32767)
+        out = (score, end_ref, end_read,
+               mc.clamp_max(32767).to(torch.int16).t().contiguous())
+    return (out, hist) if steps else out
 
 
 def forward_perread_ref(profile, refw, read_len, col_mask, seg_id, seg_start,
@@ -195,9 +250,11 @@ def forward_shared_ref_packed(profile, ref, so, sl, rl_s, flat_idx,
                               max_sub: int | None = None,
                               valid_len: int | None = None,
                               quirk: bool = False, word: bool = False,
-                              dual: bool = False):
+                              dual: bool = False, gate=None,
+                              steps: bool = False):
     """Forward pass of LANE-PACKED rows (ops/pack.py): the plain version of
-    the JAX kernel's packed mode, run on the packed layout itself.
+    the JAX kernel's packed mode, run on the packed layout itself (with
+    gate=, as the kernel runs it: _packed_slots_ref).
 
     profile (n_rows, n+1, W) over the packed codes (common.pack_codes);
     so/sl/rl_s (n_rows, S) slot tables (common.pack_tables); flat_idx (B,)
@@ -223,6 +280,10 @@ def forward_shared_ref_packed(profile, ref, so, sl, rl_s, flat_idx,
         raise ValueError("the dual tier needs the quirk off")
     if quirk:
         pack.check_quirk_span(pack.slot_max(sl), max_sub, gapO, gapE)
+    if gate is not None:
+        return _packed_slots_ref(profile, ref, so, sl, rl_s, flat_idx, gapO,
+                                 gapE, valid_len, quirk, word, dual, gate,
+                                 steps)
     col_mask, slot_id, slot_start, lane_off, qseg, wcol = pack.pack_geometry(
         so, sl, rl_s, W, 8 if word else 16)
     seg_bias = slot_id * pack.PACK_BUMP
@@ -281,6 +342,48 @@ def forward_shared_ref_packed(profile, ref, so, sl, rl_s, flat_idx,
     tables = pack.pack_reconstruct(bv, bc, maxcol.reshape(Br, nblk * S2),
                                    slot_id, lane_off, rl_s.to(dev), S, dual)
     return pack.gather_reads(*tables, flat_idx.to(dev), S, dual)
+
+
+def _packed_slots_ref(profile, ref, so, sl, rl_s, flat_idx, gapO, gapE,
+                      valid_len, quirk, word, dual, gate, steps):
+    """forward_shared_ref_packed as csrc/sw_forward_packed.cu computes it,
+    for the gated kernel: every read's slot cut out of its packed row into a
+    row of its own, Lw = pack.packed_lanes(longest slot) lanes (lane j =
+    the slot's lane j, the virtual letter's zero scores past the slot),
+    col_mask j < sl, the quirk's nb lane blocks of sl/nb lanes as the lane
+    segments, dual's word lanes j < min(sl, round_up(rl, 8)); then the
+    unpacked blockmax pass over the columns < valid_len with the gate, and
+    zero block maxima past them."""
+    n1, W = profile.shape[1:]
+    S = int(so.shape[1])
+    dev = profile.device
+    R = int(ref.shape[0])
+    vl = R if valid_len is None else min(int(valid_len), R)
+    fi = flat_idx.to(dev).long()
+    row = fi // S
+    o, ln, rl = (t.to(dev).reshape(-1)[fi].to(_I32) for t in (so, sl, rl_s))
+    Lw = pack.packed_lanes(int(ln.max()) if ln.numel() else 0)
+    j = torch.arange(Lw, dtype=_I32, device=dev)[None, :]
+    inside = j < ln[:, None]
+    src = (o[:, None] + j).clamp(max=W - 1).long()
+    prof = torch.gather(profile[row], 2,
+                        src[:, None, :].expand(-1, n1, -1))
+    prof = torch.where(inside[:, None, :], prof, 0)
+    nb = 8 if word else 16
+    seg = (j * nb // ln.clamp_min(1)[:, None]).clamp(max=nb - 1)
+    wmask = (j < torch.minimum(ln, (rl + 7) // 8 * 8)[:, None]) if dual \
+        else None
+    res = forward_shared_ref(
+        prof, ref[:vl], rl, inside, seg.to(torch.int8),
+        torch.zeros_like(inside), gapO, gapE, quirk, blockmax=True,
+        valid_len=vl, wmask=wmask, gate=gate, steps=steps)
+    out, hist = res if steps else (res, None)
+    bm = out[3]
+    nblk = (R + BM - 1) // BM
+    pad = torch.zeros(bm.shape[:-1] + (nblk - bm.shape[-1],), dtype=_I32,
+                      device=dev)
+    out = out[:3] + (torch.cat([bm, pad], dim=-1).contiguous(),)
+    return (out, hist) if steps else out
 
 
 def blockmax_reduce(max_column, ref_len: int):

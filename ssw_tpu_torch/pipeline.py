@@ -38,7 +38,7 @@ import torch
 
 from ssw_tpu_torch.core import oracle
 from ssw_tpu_torch.core.encoding import matrix_bias
-from ssw_tpu_torch.ops import common, cuda_sw, pack, scan_sw, subopt
+from ssw_tpu_torch.ops import common, cuda_sw, gate, pack, scan_sw, subopt
 
 # -- observability hook (profiling.py) --------------------------------------
 # an active GcupsCounter collects per-phase seconds + useful-cell counts
@@ -307,6 +307,55 @@ PACK_WIDTHS = (1024, 2048, 4096)
 DUAL: bool | None = None
 
 
+# The bounded-radius gate (ops/gate.py) on the forward launches.  GATE
+# chooses its thresholds: None applies _gate_rule (the H100's), True the
+# JAX package's gate_plan (its Pallas path, SSW_TPU_GATESCAN as
+# gate.GATESCAN says), "tiers" the card's tiers on every launch (what the
+# rule takes where it gates), False never gates.  Outputs do not depend on
+# it.
+GATE: bool | str | None = None
+
+
+def _gate_rule(K: int, span: int, L: int, gapO: int, gapE: int,
+               max_sub: int, quirk: bool, pack_bound: int | None):
+    """GATE = None on the H100: the card's tiers (gate.card_thresholds, lag
+    1) where the JAX plan's noise test passes (gate.clears_noise) and the
+    quirk is off, else no gate.
+
+    Gated against ungated in turns on one card (NVIDIA H100 80GB HBM3,
+    700 W; PERF.md): where nearly every column takes depth 0, the gate
+    pays (the Ion Torrent headline at -m1 -x3 -o5 -e2, chip_smoke.py phase
+    5d: 6.564 and 6.495 s against 8.432 s without it); at default DNA
+    penalties most columns take depth 3 and the switch per column costs
+    about what the two saved shuffle steps save (config-4 leaf,
+    ssw_tpu_torch/leaf_timing.py: int32 blockmax 269.4 against 274.3 ms,
+    the int16 tier 314.6 against 295.0 ms; chip_smoke.py phase 6: packed
+    268.47 against 258.07 ms); with the quirk, whose own scan is never
+    gated, it loses (408.8 against 291.6 ms)."""
+    if quirk or not gate.clears_noise(L, gapO, gapE, max_sub, pack_bound):
+        return None
+    return gate.card_thresholds(K, span, gapO, gapE, max_sub)
+
+
+def _gate(L: int, gapO: int, gapE: int, max_sub: int, quirk: bool,
+          slot_max: int | None = None):
+    """Thresholds for a forward launch over rows of L lanes (packed: rows
+    of L lanes whose longest slot is slot_max, one warp of
+    pack.packed_lanes(slot_max) lanes per slot), or None."""
+    if GATE is False:
+        return None
+    if slot_max is None:
+        K, span, bound = L // 32, L, None
+    else:
+        K = pack.packed_lanes(slot_max) // 32
+        span, bound = slot_max, pack.pack_bound(slot_max)
+    if GATE == "tiers":
+        return gate.card_thresholds(K, span, gapO, gapE, max_sub)
+    if GATE:
+        return gate.plan_thresholds(K, L, gapO, gapE, max_sub, bound)
+    return _gate_rule(K, span, L, gapO, gapE, max_sub, quirk, bound)
+
+
 def _slot_len(read_len, col_word):
     """Each read's slot length: its length padded to the tier's stripe (8
     lanes word, 16 byte)."""
@@ -557,7 +606,8 @@ class _LeafState:
     __slots__ = (
         "req", "dev", "streaming", "B", "n", "bias", "ref_len", "mask_len",
         "read_len", "L", "mat_ext_d", "reads_d", "rl_d", "quirk", "max_sub",
-        "word_tier", "might", "dual", "ref_codes", "ref_ext", "D", "Wb", "Wb2",
+        "word_tier", "might", "dual", "gate", "ref_codes", "ref_ext", "D",
+        "Wb", "Wb2",
         "fwd_d", "sub_d", "bm_d",
         "score", "end_ref", "end_read", "score2", "ref_end2", "word",
         "null_mask", "fin")
@@ -574,7 +624,7 @@ def _forward(st: _LeafState, reads_d, rl_d, col_word, seg_word: bool):
     return cuda_sw.forward_shared(profile, st.ref_codes, rl_d, cm_d, seg_d,
                                   ss_d, st.req.gapO, st.req.gapE, st.quirk,
                                   max_sub=st.max_sub, blockmax=st.streaming,
-                                  valid_len=st.ref_len)
+                                  valid_len=st.ref_len, gate=st.gate)
 
 
 def _leaf_start(req: BatchRequest, dev, streaming: bool):
@@ -647,6 +697,7 @@ def _leaf_start(req: BatchRequest, dev, streaming: bool):
     # tier's channel instead of re-running might-but-didn't reads
     # (might is all False with the quirk or a word-tier request)
     dual = st.dual = bool(streaming and DUAL is not False and might.any())
+    st.gate = _gate(L, req.gapO, req.gapE, max_sub, quirk)
     col_word = np.zeros(B, bool) if dual else np.full(B, word_tier) | might
     if _counter is not None:
         _counter.add_pairs(read_len, ref_len)
@@ -663,6 +714,7 @@ def _leaf_start(req: BatchRequest, dev, streaming: bool):
                 int(plan.slot_len.max()), max_sub, req.gapO, req.gapE):
             plan = None  # the quirk's sub-slot block bias would not be exact
     if plan is not None:
+        slot_max = int(plan.slot_len.max())
         so, sl, rl_s = common.pack_tables(plan, read_len[keep])
         pprof = _prep_packed(
             _to(dev, common.pack_codes(plan, reads_padded[keep], n),
@@ -671,8 +723,9 @@ def _leaf_start(req: BatchRequest, dev, streaming: bool):
             pprof, st.ref_codes, _to(dev, so), _to(dev, sl), _to(dev, rl_s),
             _to(dev, (plan.row * plan.S + plan.slot)[:B].astype(np.int32)),
             req.gapO, req.gapE, max_sub=max_sub, valid_len=ref_len,
-            quirk=quirk, word=bool(word_tier), dual=dual,
-            slot_max=int(plan.slot_len.max()))
+            quirk=quirk, word=bool(word_tier), dual=dual, slot_max=slot_max,
+            gate=_gate(plan.L, req.gapO, req.gapE, max_sub, quirk,
+                       slot_max))
     elif dual:
         profile, cm_d, seg_d, ss_d = _prep_device(
             st.reads_d, st.rl_d, st.mat_ext_d, _to(dev, col_word), L,
@@ -680,7 +733,7 @@ def _leaf_start(req: BatchRequest, dev, streaming: bool):
         score_d, er_d, ed_d, mc_d = cuda_sw.forward_shared(
             profile, st.ref_codes, st.rl_d, cm_d, seg_d, ss_d, req.gapO,
             req.gapE, quirk, max_sub=max_sub, blockmax=True,
-            valid_len=ref_len, wmask=_word_mask(st.rl_d, L))
+            valid_len=ref_len, wmask=_word_mask(st.rl_d, L), gate=st.gate)
     else:
         score_d, er_d, ed_d, mc_d = _forward(st, st.reads_d, st.rl_d,
                                              col_word, word_tier)

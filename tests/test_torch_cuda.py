@@ -306,3 +306,113 @@ def test_packed_dual_pipeline_on_card_equals_cpu(card, monkeypatch):
     monkeypatch.setattr(pipeline, "DUAL", False)
     want = pipeline.align_batch(req, device="cpu")
     assert [vars(a) for a in got] == [vars(b) for b in want]
+
+
+def _gate_inputs(dev, B, L, R, mat, seed):
+    """Hot reads (target copies, and copies with a read-side insertion of
+    K+1..64 bases after a 40-base prefix) and cold random ones."""
+    rng = np.random.default_rng(seed)
+    ref = rng.integers(0, 4, R).astype(np.int32)
+    read_len = rng.integers(L // 3, L - 16, B).astype(np.int32)
+    K = L // 32
+    reads = []
+    for b, ln in enumerate(read_len):
+        ln = int(ln)
+        s = int(rng.integers(0, R - ln))
+        r = rng.integers(0, 4, ln).astype(np.int32)
+        a, n = min(40, ln // 3), min(64, ln - min(40, ln // 3) - 8)
+        if b % 4 == 0:
+            r = ref[s:s + ln].copy()
+        elif b % 4 == 1 and n > K:
+            n = int(rng.integers(K + 1, n + 1))
+            r = np.concatenate([ref[s:s + a], r[:n], ref[s + a:s + ln - n]])
+        reads.append(r)
+    rp = common.pad_reads(reads, L, 4)
+    prof = common.build_profile(rp, read_len, common.extend_matrix(mat))
+    geo = common.batch_geometry(read_len, L, word=False)
+    arrs = (prof, ref, read_len, geo.col_mask, geo.seg_id, geo.seg_start)
+    return tuple(torch.as_tensor(np.ascontiguousarray(a)).to(dev)
+                 for a in arrs)
+
+
+@pytest.mark.parametrize("L,mat,gapO,gapE,quirk,max_sub,mode", [
+    (128, dna_matrix(2, 2), 3, 1, False, 2, "base"),       # int16 tier
+    (256, dna_matrix(1, 3), 5, 2, False, 3, "dual"),       # int16 dual
+    (256, dna_matrix(1, 3), 5, 2, False, None, "blockmax"),  # int32
+    (128, dna_matrix(2, 4), 3, 1, True, None, "base"),     # int32 quirk
+    (1088, dna_matrix(2, 2), 3, 1, False, None, "dual"),   # global rows
+])
+def test_forward_shared_gated_kernel_equals_plain(card, L, mat, gapO, gapE,
+                                                  quirk, max_sub, mode):
+    """The gate in both forward kernels: the gated launch equals the gated
+    plain model and the ungated launch, is counted in GATED, and its
+    histogram of column steps by scan depth equals the plain model's."""
+    from ssw_tpu_torch.ops import gate
+
+    args = _gate_inputs(card, 21, L, 1200, mat, seed=L + gapO)
+    thr = gate.card_thresholds(L // 32, L, gapO, gapE, int(np.abs(mat).max()))
+    rl = args[2]
+    kw = {}
+    if mode != "base":
+        kw = dict(blockmax=True, valid_len=1100)
+    if mode == "dual":
+        j = torch.arange(L, device=card)[None, :]
+        kw["wmask"] = (j < (rl[:, None] + 7) // 8 * 8).contiguous()
+    i16 = cuda_sw.i16_exact(L, gapO, gapE, max_sub, quirk)
+    name = cuda_sw.shared_kernel_name(i16, mode != "base", mode == "dual")
+    before = cuda_sw.gated_counts()[name]
+    cuda_sw.reset_gate_steps()
+    got = cuda_sw.forward_shared(*args, gapO, gapE, quirk, max_sub=max_sub,
+                                 gate=thr, **kw)
+    steps = cuda_sw.gate_steps()
+    assert cuda_sw.gated_counts()[name] == before + 1
+    want, want_steps = scan_sw.forward_shared_ref(
+        *args, gapO, gapE, quirk, gate=thr, pairs=i16, steps=True, **kw)
+    _equal(got, want)
+    _equal(got, cuda_sw.forward_shared(*args, gapO, gapE, quirk,
+                                       max_sub=max_sub, **kw))
+    assert steps == want_steps.tolist() and sum(steps[:5]) > 0
+
+
+@pytest.mark.parametrize("dual", [False, True])
+def test_forward_shared_packed_gated_kernel_equals_plain(card, dual):
+    from ssw_tpu_torch.ops import gate, pack
+
+    lens = list(range(20, 221, 5))
+    packed, _, _ = _packed_inputs(card, lens, 1024, 768, 700,
+                                  dna_matrix(2, 2), seed=5)
+    smax = pack.slot_max(packed[3])
+    thr = gate.card_thresholds(pack.packed_lanes(smax) // 32, smax, 3, 1, 2)
+    kw = dict(max_sub=2, valid_len=700, dual=dual)
+    cuda_sw.reset_gate_steps()
+    got = cuda_sw.forward_shared_packed(*packed, 3, 1, gate=thr, **kw)
+    steps = cuda_sw.gate_steps()
+    want, want_steps = scan_sw.forward_shared_ref_packed(
+        *packed, 3, 1, gate=thr, steps=True, **kw)
+    _equal(got, want)
+    _equal(got, cuda_sw.forward_shared_packed(*packed, 3, 1, **kw))
+    assert steps == want_steps.tolist() and sum(steps[:5]) > 0
+
+
+def test_gated_pipeline_on_card_equals_cpu(card, monkeypatch):
+    """-m1 -x3 -o5 -e2, streaming, packed, dual: the card's gate on the
+    card against no gate on the CPU."""
+    rng = np.random.default_rng(33)
+    ref = rng.integers(0, 4, 2048).astype(np.int8)
+    reads = []
+    for i in range(40):
+        ln = int(rng.integers(30, 249))
+        s = int(rng.integers(0, 2048 - ln))
+        reads.append(ref[s:s + ln].copy() if i % 2 == 0 else
+                     rng.integers(0, 4, ln).astype(np.int8))
+    req = pipeline.BatchRequest(reads=reads, ref=ref, mat=dna_matrix(1, 3),
+                                gapO=5, gapE=2,
+                                mask_len=[max(len(r) // 2, 15)
+                                          for r in reads])
+    monkeypatch.setattr(pipeline, "STREAM_SUBOPT", True)
+    cuda_sw.reset_launches()
+    got = pipeline.align_batch(req)
+    assert cuda_sw.gated_counts()["forward_shared_packed_dual"] == 1
+    monkeypatch.setattr(pipeline, "GATE", False)
+    want = pipeline.align_batch(req, device="cpu")
+    assert [vars(a) for a in got] == [vars(b) for b in want]
