@@ -19,11 +19,16 @@ Phases (any failure exits non-zero before the final line):
      also equal to the unpacked blockmax kernel channel by channel; the
      bounded-radius gate (phase_gate) in every forward kernel and mode, K 2
      to 34, the card's tiers and the JAX plan's, against the gated plain
-     model and the ungated launch, depth histograms count for count
+     model and the ungated launch, depth histograms count for count; the
+     owned-column mode of both forward kernels (phase_owned: random and
+     shard idx/own, K 2 to 16 and 34, odd B, the quirk, gated and not)
   4. the ssw_test main path (ssw_tpu_torch.cli.main) on the card, byte-equal
      to the reference-binary captures in tests/golden (configs 1-3), then
      every golden again with the streaming suboptimal scan forced, and with
      the card's gate tiers on every launch (GATE = "tiers")
+  4s. every golden again through dcli align + merge with the forward pass
+     sharded over a mesh of [card] x 4: --mesh-seq 2 by the default rules,
+     --mesh-seq 4 with GATE = "tiers"; byte-equal
   5. config 4 at real size: 8192 Illumina-like 100 bp reads sampled from
      tests/data/1M.fa, -c -s -h -r, in turns: the full (B, R) suboptimal
      scan, streaming unpacked, streaming by the default rules (packed,
@@ -49,14 +54,22 @@ Phases (any failure exits non-zero before the final line):
   5d. the same reads and genome with the README's second penalty set,
      -m 1 -x 3 -o 5 -e 2 -c -s -h (the JAX package's gate_plan turns its
      gate on there), in turns: GATE = None, False, True, None, byte-equal.
-     Launch counts are set to 0 before phase 4 and read after phase 5d:
+  5e. BASELINE config 5 on one card: phase 5b's target and its first 2048
+     reads, -c -s -h -r, through dcli align --batch-size 1024 --mesh-seq 4
+     over [card] x 4 (the sequence-parallel path: halo re-compute, best-hit
+     merge) and dcli merge, byte-equal to phase 5b's SAM for those reads;
+     wall, reads/s, GCUPS, phase seconds, peak memory, launches.
+  5f. two dcli align processes on the card joined by a gloo rendezvous
+     (--coordinator), BASELINE config 3, merged: equal to its capture.
+     Launch counts are set to 0 before phase 4 and read after phase 5f:
      these are the main path, and each kernel must have run in it, each
      forward kernel with the gate too.
   6. kernel timing at the largest shapes phases 4-5d gave each kernel,
      beside the plain version and the integer-ALU bound, packed leaves
-     beside unpacked leaves of the same reads in turns, and each gated
-     kernel family beside its ungated launch in turns; prints the
-     {"kernels": [...]} line
+     beside unpacked leaves of the same reads in turns, each gated
+     kernel family beside its ungated launch in turns, and the owned
+     kernels beside their base mode on the same inputs in turns (the
+     largest config-5 shard); prints the {"kernels": [...]} line
 
 The last line of stdout is {"ok": true, "device": {...}}.  Imports nothing
 of JAX and nothing of the JAX package.
@@ -629,6 +642,75 @@ def phase_gate(torch, dev, worst):
     return steps
 
 
+def owned_columns(rng, layout, R):
+    """idx/own of one shard: "shard" is shard 1 of a seq split (halo
+    warm-up columns before the owned ones), "random" a permutation of
+    global indices with random ownership."""
+    if layout == "shard":
+        halo, start = 96, 1000
+        idx = np.arange(R, dtype=np.int32) + (start - halo)
+        return idx, idx >= start
+    return (rng.permutation(4 * R)[:R].astype(np.int32),
+            rng.random(R) < 0.5)
+
+
+def phase_owned(torch, dev, worst):
+    """The owned-column mode of both forward kernels (the sequence-parallel
+    shards' pass) against the plain version forward_shared_ref_gated: both
+    idx/own layouts, K 2..16 (14 included) and the GlobRow width 34, odd B
+    (the last int16 pair has no second read), the int32 kernel with the
+    quirk, each gated (the card's tiers) and ungated; exact outputs, and a
+    gated launch's depth histogram equal to the plain model's."""
+    from ssw_tpu_torch.core.encoding import BLOSUM50
+    from ssw_tpu_torch.ops import common, cuda_sw, gate, scan_sw
+
+    cases = []  # label, L, B, R, mat, gapO, gapE, quirk, layout
+    for i, L in enumerate((64, 128, 192, 256, 320, 384, 448, 512, 1088)):
+        for layout in ("random", "shard"):
+            cases.append((f"K={L // 32} {layout}", L, 2 * (9 + i) + 1,
+                          600 + 37 * i, dna_mat(2, 2), 3, 1, False, layout))
+    cases += [("K=4 quirk BLOSUM50 shard", 128, 23, 700, BLOSUM50, 3, 1,
+               True, "shard"),
+              ("K=14 quirk 2/-4 random", 448, 13, 700, dna_mat(2, 4), 3, 1,
+               True, "random"),
+              ("K=8 m1x3o5e2 shard", 256, 19, 700, dna_mat(1, 3), 5, 2,
+               False, "shard")]
+    for i, (label, L, B, R, mat, gO, gE, quirk, layout) in enumerate(cases):
+        args, _, _ = make_shared(torch, common, dev, B=B, L=L, R=R, mat=mat,
+                                 word=False, seed=900 + i)
+        idx, own = owned_columns(np.random.default_rng(950 + i), layout, R)
+        t = lambda a: torch.as_tensor(a).to(dev)
+        cols = (t(idx), t(own))
+        ms = int(np.abs(mat).max())
+        thr = gate.card_thresholds(L // 32, L, gO, gE, ms)
+        tiers = [None] + ([ms] if cuda_sw.i16_exact(L, gO, gE, ms, quirk)
+                          else [])
+        for g in (None, thr):
+            for tier in tiers:
+                name = cuda_sw.owned_kernel_name(tier is not None)
+                cuda_sw.reset_gate_steps()
+                got = cuda_sw.forward_shared_gated(
+                    *args[:2], *cols, *args[2:], gO, gE, quirk,
+                    max_sub=tier, gate=g)
+                hist = cuda_sw.gate_steps()  # synchronises
+                want = scan_sw.forward_shared_ref_gated(
+                    *args[:2], *cols, *args[2:], gO, gE, quirk, gate=g,
+                    pairs=tier is not None, steps=g is not None)
+                if g is not None:
+                    want, want_hist = want
+                    check(hist == want_hist.tolist(),
+                          f"owned {label} {name}: depth histogram {hist} != "
+                          f"the plain model's {want_hist.tolist()}")
+                torch.cuda.synchronize()
+                err = max_abs_diff(torch, got, want)
+                worst[name] = max(worst[name], err)
+                log(f"  owned {label} B={B} {name}"
+                    + (f" gate={list(g)} steps {hist}" if g else "")
+                    + f": max_abs_err {err}")
+                check(err == 0, f"owned {label} {name}: kernel != plain "
+                      f"(max_abs_err {err})")
+
+
 # ------------------------------------------------------------------- phase 4
 
 GOLDEN_CASES = [
@@ -646,6 +728,12 @@ GOLDEN_CASES = [
 ]
 
 
+def data_path(a):
+    """A golden case's argument: a file name in tests/data, or a flag."""
+    return os.path.join(DATA, a) if a.endswith(
+        (".fa", ".fastq", ".fq", ".seq")) else a
+
+
 def run_cli(cli, args, dev):
     out, err = io.StringIO(), io.StringIO()
     rc = cli.main(args, out=out, err=err, device=dev)
@@ -655,10 +743,7 @@ def run_cli(cli, args, dev):
 def phase_golden(dev, scratch, label):
     from ssw_tpu_torch import cli
 
-    def path(a):
-        return os.path.join(DATA, a) if a.endswith(
-            (".fa", ".fastq", ".fq", ".seq")) else a
-
+    path = data_path
     for args, gold in GOLDEN_CASES:
         t0 = time.perf_counter()
         rc, out, _ = run_cli(cli, [path(a) for a in args], dev)
@@ -690,6 +775,60 @@ def phase_golden(dev, scratch, label):
     log(f"  {label} g_prot_b62_blast.txt (BLOSUM62 file): rc {rc} "
         f"byte-equal {same}")
     check(rc == 0 and same, f"golden g_prot_b62_blast.txt differs ({label})")
+
+
+def run_dcli(dcli, dev, mesh_seq, args, prefix, cwd=None):
+    """dcli align over a mesh of [dev] * 4 at --mesh-seq mesh_seq, then
+    dcli merge; returns the merged output.  args: ssw_test flags (-h
+    becomes --header) ending in target and query."""
+    flags = ["--header" if a == "-h" else a for a in args]
+    here = os.getcwd()
+    if cwd:
+        os.chdir(cwd)
+    try:
+        err = io.StringIO()
+        rc = dcli.main(["align", "--mesh-seq", str(mesh_seq), "--out",
+                        prefix, *flags], err=err, devices=[dev] * 4)
+        check(rc == 0, f"dcli align {args}: rc {rc}: {err.getvalue()[-2000:]}")
+        merged = prefix + ".merged"
+        check(dcli.main(["merge", "--out", merged, prefix + ".part0"],
+                        err=io.StringIO()) == 0, "dcli merge failed")
+    finally:
+        os.chdir(here)
+    with open(merged) as f:
+        return f.read()
+
+
+def phase_dcli_golden(dev, scratch, mesh_seq, label):
+    """Every golden case through dcli align + merge on one card, the
+    forward pass sharded over a mesh of [dev] * 4 (data x seq = 4 /
+    mesh_seq x mesh_seq): byte-equal to the reference-binary captures."""
+    from ssw_tpu_torch import dcli
+
+    path = data_path
+    d = os.path.join(scratch, f"dcli_{mesh_seq}")
+    os.makedirs(d, exist_ok=True)
+    for i, (args, gold) in enumerate(GOLDEN_CASES):
+        t0 = time.perf_counter()
+        out = run_dcli(dcli, dev, mesh_seq, [path(a) for a in args],
+                       os.path.join(d, f"g{i}"))
+        with open(os.path.join(GOLD, gold)) as f:
+            same = out == f.read()
+        log(f"  {label} {gold}: byte-equal {same} "
+            f"({time.perf_counter() - t0:.2f} s)")
+        check(same, f"dcli golden {gold} differs ({label})")
+    out = run_dcli(dcli, dev, mesh_seq, ["-c", path("target2.fa"),
+                                         path("query2.fa")],
+                   os.path.join(d, "t2"))
+    check(out == "", "dcli: headerless target2.fa produced output")
+    # BASELINE config 2, from the cwd phase_golden prepared
+    out = run_dcli(dcli, dev, mesh_seq, ["-p", "-a", "B62.TXT", "-c",
+                                         "PROTEIN2.FA", "PROTEIN1.FA"],
+                   os.path.join(d, "b62"), cwd=os.path.join(scratch, "b62"))
+    with open(os.path.join(GOLD, "g_prot_b62_blast.txt")) as f:
+        same = out == f.read()
+    log(f"  {label} g_prot_b62_blast.txt (BLOSUM62 file): byte-equal {same}")
+    check(same, f"dcli golden g_prot_b62_blast.txt differs ({label})")
 
 
 # ------------------------------------------------------------------- phase 5
@@ -935,7 +1074,7 @@ def phase_target10m(torch, dev, scratch, card):
     log(f"  10M: the full scan's SAM of the first {TARGET10M_FULL_READS} "
         f"reads is byte-equal to the streaming run's; walls default "
         f"{res['wall_s']} s, GATE=False {res_off['wall_s']} s")
-    return res, res_full
+    return target, fq, out
 
 
 ION_GENOME = 4_938_920     # the reference README's Ion Torrent headline:
@@ -1102,6 +1241,133 @@ def phase_iontorrent_o5e2(torch, dev, card, ion):
     return res
 
 
+CONFIG5_READS = 2048       # phase 5e: the first reads of phase 5b's
+CONFIG5_SEQ = 4            # over a mesh of [card] * 4, --mesh-seq 4
+
+
+def phase_config5(torch, dev, scratch, card, t10):
+    """BASELINE config 5 on one card: phase 5b's 10 Mbp target and the
+    first CONFIG5_READS of its reads, -c -s -h -r, through dcli align with
+    the target sharded over a mesh of [card] * 4 (--mesh-seq 4, 1024-read
+    batches: the JAX package's sequence-parallel path, halo re-compute and
+    best-hit merge), then dcli merge: byte-equal to phase 5b's streaming
+    SAM for the same reads."""
+    from ssw_tpu_torch import dcli, pipeline, profiling
+    from ssw_tpu_torch.ops import cuda_sw
+
+    target, fq, sam5b = t10
+    fq_small = os.path.join(scratch, "illumina_10M_config5.fastq")
+    with open(fq) as f, open(fq_small, "w") as g:
+        for i, line in enumerate(f):
+            if i >= 4 * CONFIG5_READS:
+                break
+            g.write(line)
+    lines = sam5b.splitlines(keepends=True)
+    want = "".join([ln for ln in lines if ln.startswith("@")]
+                   + [ln for ln in lines
+                      if not ln.startswith("@")][:CONFIG5_READS])
+    prefix = os.path.join(scratch, "config5")
+    counter = profiling.GcupsCounter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = cuda_sw.launch_counts()
+    gated_before = cuda_sw.gated_counts()
+    t0 = time.perf_counter()
+    err = io.StringIO()
+    with pipeline.profiled(counter):
+        rc = dcli.main(["align", "-c", "-s", "--header", "-r",
+                        "--batch-size", "1024", "--mesh-seq",
+                        str(CONFIG5_SEQ), "--out", prefix, target, fq_small],
+                       err=err, devices=[dev] * CONFIG5_SEQ)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"config 5: dcli align rc {rc}: {err.getvalue()[-2000:]}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    merged = prefix + ".sam"
+    check(dcli.main(["merge", "--out", merged, prefix + ".part0"],
+                    err=io.StringIO()) == 0, "config 5: dcli merge failed")
+    with open(merged) as f:
+        same = f.read() == want
+    res = {
+        "card": card, "reads": CONFIG5_READS, "mesh": f"1 x {CONFIG5_SEQ}",
+        "wall_s": wall, "reads_per_s": CONFIG5_READS / wall,
+        "cells": counter.cells, "gcups_wall": counter.cells / wall / 1e9,
+        "phase_seconds": counter.seconds, "peak_device_bytes": peak,
+        "launches": {k: n - before[k] for k, n in
+                     cuda_sw.launch_counts().items() if n != before[k]},
+        "gated": {k: n - gated_before[k] for k, n in
+                  cuda_sw.gated_counts().items() if n != gated_before[k]},
+        "byte_equal_to_5b": same,
+    }
+    log("  config5 " + json.dumps(res))
+    check(same, "config 5: the sharded SAM differs from phase 5b's "
+          "streaming SAM for the same reads")
+    check(res["launches"].get("forward_shared_i16_owned", 0) > 0,
+          "config 5 did not run the owned kernel")
+    return res
+
+
+DCLI_RUNNER = """
+import sys
+sys.path.insert(0, {root!r})
+from ssw_tpu_torch import dcli
+sys.exit(dcli.main({args!r}))
+"""
+
+
+def phase_two_process(scratch):
+    """BASELINE config 3 (54mer_hap1_1.100.fastq vs 100k.fa -r -c -s -h) as
+    two dcli align processes on the card that meet in a gloo rendezvous
+    (--coordinator 127.0.0.1:<free port>), then dcli merge: equal to the
+    reference-binary capture.  Both processes are killed if they outlive
+    their time limit."""
+    import socket
+
+    from ssw_tpu_torch import dcli
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    coord = f"127.0.0.1:{s.getsockname()[1]}"
+    s.close()
+    prefix = os.path.join(scratch, "two_proc")
+    procs = []
+    t0 = time.perf_counter()
+    for host in (0, 1):
+        args = ["align", "-r", "-c", "-s", "--header", "--coordinator",
+                coord, "--num-hosts", "2", "--host-id", str(host),
+                "--batch-size", "32", "--out", prefix,
+                os.path.join(DATA, "100k.fa"),
+                os.path.join(DATA, "54mer_hap1_1.100.fastq")]
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", DCLI_RUNNER.format(root=ROOT, args=args)],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True))
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=300)
+            outs.append((p.returncode, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for host, (rc, err) in enumerate(outs):
+        log(f"  host {host}: rc {rc}; {err.strip().splitlines()[-1:]}")
+        check(rc == 0, f"two-process dcli host {host}: rc {rc}: "
+              f"{err[-2000:]}")
+    merged = prefix + ".sam"
+    check(dcli.main(["merge", "--out", merged, prefix + ".part0",
+                     prefix + ".part1"], err=io.StringIO()) == 0,
+          "two-process dcli merge failed")
+    with open(merged) as f, open(os.path.join(
+            GOLD, "g_54mer_100k_sam.txt")) as g:
+        same = f.read() == g.read()
+    log(f"  two processes merged: byte-equal to g_54mer_100k_sam.txt "
+        f"{same} ({time.perf_counter() - t0:.1f} s)")
+    check(same, "two-process dcli output differs from the golden")
+
+
 # the phase label the recorders file each kernel call under
 tags = ["3"]
 
@@ -1133,18 +1399,25 @@ def record_main_path(cuda_sw):
                               kwargs.get("max_sub"), quirk),
             bool(kwargs.get("blockmax")), kwargs.get("wmask") is not None)
 
+    def owned_name(args, kwargs):
+        prof, gapO, gapE, quirk = args[0], args[8], args[9], args[10]
+        return cuda_sw.owned_kernel_name(cuda_sw.i16_exact(
+            int(prof.shape[2]), gapO, gapE, kwargs.get("max_sub"), quirk))
+
     recs = (Recorder(cuda_sw.forward_shared, shared_name),
             Recorder(cuda_sw.forward_shared_packed,
                      lambda args, kwargs: "forward_shared_packed"
                      + ("_dual" if kwargs.get("dual") else "")),
             Recorder(cuda_sw.forward_perread,
-                     lambda args, kwargs: "forward_perread"))
+                     lambda args, kwargs: "forward_perread"),
+            Recorder(cuda_sw.forward_shared_gated, owned_name))
     (cuda_sw.forward_shared, cuda_sw.forward_shared_packed,
-     cuda_sw.forward_perread) = recs
+     cuda_sw.forward_perread, cuda_sw.forward_shared_gated) = recs
 
     def restore():
         (cuda_sw.forward_shared, cuda_sw.forward_shared_packed,
-         cuda_sw.forward_perread) = (r.fn for r in recs)
+         cuda_sw.forward_perread, cuda_sw.forward_shared_gated) = (
+            r.fn for r in recs)
         return {key: call for r in recs for key, call in r.calls.items()}
     return restore
 
@@ -1204,7 +1477,8 @@ def phase_timing(torch, dev, rec, worst, launches, gated_launches, clock_mhz,
         return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes,
                                                                "bytes")
 
-    def shared_bound(name, prof, cm, cols, quirk, wmask=None):
+    def shared_bound(name, prof, cm, cols, quirk, wmask=None,
+                     extra_bytes=0):
         """The recurrence's operations over the lane-cells inside col_mask
         (plus blockmax's running max per read and column, and the dual
         mode's word-channel max per wmask lane-cell); inputs read once
@@ -1222,7 +1496,8 @@ def phase_timing(torch, dev, rec, worst, launches, gated_launches, clock_mhz,
             ops += ((cuda_sw.OPS_PER_COLUMN_BLOCKMAX_I16 if i16 else
                      cuda_sw.OPS_PER_COLUMN_BLOCKMAX) * B * cols)
             out_bytes = 4 * B * ((cols + scan_sw.BM - 1) // scan_sw.BM)
-        in_bytes = prof.numel() + 4 * cols + 3 * cm.numel() + 4 * B
+        in_bytes = (prof.numel() + 4 * cols + 3 * cm.numel() + 4 * B
+                    + extra_bytes)
         if wmask is not None:
             ops += ((cuda_sw.OPS_PER_WORD_CELL_DUAL_I16 if i16 else
                      cuda_sw.OPS_PER_WORD_CELL_DUAL)
@@ -1550,6 +1825,65 @@ def phase_timing(torch, dev, rec, worst, launches, gated_launches, clock_mhz,
         rows.append(gated_row(name, tag, leaf,
                               "ssw_tpu_torch/csrc/" + source))
 
+    def owned_row(name, source, tag=None):
+        """The owned-column mode at its largest main-path call (or its
+        largest in phase `tag`): a column slice against the plain version
+        and, in turns, against the base mode of the same kernel on the same
+        inputs without idx/own; the whole shard in turns too.  The bound is
+        the base mode's operations (the owned gate adds no counted
+        operation per lane-cell) with idx/own read once."""
+        args, kw, t = call(name, tag)
+        prof, ref, idx, own, rl, cm, seg, ss, gapO, gapE, quirk = args
+        B, n1, L = prof.shape
+        R = int(ref.numel())
+        cols = min(slice_cols, R)
+        lo = mid_slice(R, None, cols)
+        cut = lambda x: x[lo:lo + cols].contiguous()
+        sl = (prof, cut(ref), cut(idx), cut(own), rl, cm, seg, ss, gapO,
+              gapE, quirk)
+        base = (prof, cut(ref), rl, cm, seg, ss, gapO, gapE, quirk)
+        fo = lambda a: cuda_sw.forward_shared_gated(*a, **kw)
+        fb = lambda a: cuda_sw.forward_shared(*a, **kw)
+        ms, base_ms = in_turns(torch, lambda: fo(sl), lambda: fb(base), 3)
+        t0 = time.perf_counter()
+        want = scan_sw.forward_shared_ref_gated(*sl)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        got = fo(sl)
+        torch.cuda.synchronize()
+        err = max_abs_diff(torch, got, want)
+        check(err == 0, f"{name} at the main-path shape: max_abs_err {err}")
+        b_ms, b_by = shared_bound(name, prof, cm, cols, quirk,
+                                  extra_bytes=5 * cols)
+        row = {
+            "name": name, "route": "cuda", "source": source,
+            "replaces": "ssw_tpu/ops/pallas_sw.py:1039 "
+                        "(forward_shared_ref_gated: _forward_call with "
+                        "idx/own, base-mode own-gating :299-311; "
+                        "pallas_call at :557 via :1063)",
+            "launches": launches[name],
+            "max_abs_err": max(err, worst[name]), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "base_mode_ms": base_ms,
+            "shape": f"B={B} L={L} R={cols} quirk={bool(quirk)} phase {t}"
+                     + (" (column slice of the shard)" if cols < R else ""),
+        }
+        if cols < R:
+            bl = (prof, ref, rl, cm, seg, ss, gapO, gapE, quirk)
+            own_ms, basemode_ms = in_turns(torch, lambda: fo(args),
+                                           lambda: fb(bl), 1)
+            row["shard"] = {
+                "owned_ms": own_ms, "base_mode_ms": basemode_ms,
+                "bound_ms": shared_bound(name, prof, cm, R, quirk,
+                                         extra_bytes=5 * R)[0],
+                "shape": f"B={B} L={L} R={R} (halo + C)"}
+        return row
+
+    rows.append(owned_row("forward_shared_i16_owned",
+                          "ssw_tpu_torch/csrc/sw_forward_i16.cu", tag="5e"))
+    rows.append(owned_row("forward_shared_owned",
+                          "ssw_tpu_torch/csrc/sw_forward.cu"))
+
     # forward_perread at the recorded reverse pass of config 4
     args, kw, _ = call("forward_perread", "5")
     prof, refw, rl, cm, seg, ss, gapO, gapE, quirk = args
@@ -1650,11 +1984,12 @@ def main() -> int:
         worst = phase_kernels(torch, dev)
         phase_packed(torch, dev, worst)
         phase_gate(torch, dev, worst)
+        phase_owned(torch, dev, worst)
         log(f"phase 3 done in {time.perf_counter() - t0:.1f} s")
         if "--kernels-only" in sys.argv[1:]:
             log("stopped after phase 3 (--kernels-only): no result")
             return 2
-        # phases 4-5b are the main path: launch counts from 0
+        # phases 4-5f are the main path: launch counts from 0
         cuda_sw.reset_launches()
         restore = record_main_path(cuda_sw)
         try:
@@ -1676,6 +2011,19 @@ def main() -> int:
                 pipeline.GATE = None
             log(f"phase 4 done in {time.perf_counter() - t0:.1f} s")
             t0 = time.perf_counter()
+            log("phase 4s dcli align + merge, the forward pass sharded over "
+                "[card] x 4, vs the goldens:")
+            tags[0] = "4s2"
+            phase_dcli_golden(dev, scratch, 2, "dcli --mesh-seq 2")
+            tags[0] = "4s4"
+            pipeline.GATE = "tiers"
+            try:
+                phase_dcli_golden(dev, scratch, 4,
+                                  "dcli --mesh-seq 4 GATE=tiers")
+            finally:
+                pipeline.GATE = None
+            log(f"phase 4s done in {time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
             log(f"phase 5 config 4: {CONFIG4_READS} reads vs 1M.fa, "
                 f"-c -s -h -r, full scan and streaming in turns:")
             phase_config4(torch, dev, scratch, CONFIG4_READS, smi)
@@ -1683,7 +2031,7 @@ def main() -> int:
             t0 = time.perf_counter()
             log(f"phase 5b 10 Mbp target: {TARGET10M_READS} reads, "
                 f"-c -s -h -r:")
-            phase_target10m(torch, dev, scratch, smi)
+            t10 = phase_target10m(torch, dev, scratch, smi)
             log(f"phase 5b done in {time.perf_counter() - t0:.1f} s")
             t0 = time.perf_counter()
             log(f"phase 5c Ion Torrent headline: {ION_READS} reads vs "
@@ -1696,11 +2044,23 @@ def main() -> int:
                 f"{' '.join(ION_PENALTIES2)}:")
             phase_iontorrent_o5e2(torch, dev, smi, ion)
             log(f"phase 5d done in {time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            log(f"phase 5e config 5 on one card: {CONFIG5_READS} reads vs "
+                f"the 10 Mbp target sharded over [card] x {CONFIG5_SEQ}, "
+                f"-c -s -h -r:")
+            tags[0] = "5e"
+            phase_config5(torch, dev, scratch, smi, t10)
+            log(f"phase 5e done in {time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            log("phase 5f two dcli processes on the card, gloo rendezvous, "
+                "config 3:")
+            phase_two_process(scratch)
+            log(f"phase 5f done in {time.perf_counter() - t0:.1f} s")
         finally:
             rec = restore()
         launches = cuda_sw.launch_counts()
         gated = cuda_sw.gated_counts()
-        log(f"main-path launches (phases 4-5d): {json.dumps(launches)}; "
+        log(f"main-path launches (phases 4-5f): {json.dumps(launches)}; "
             f"with the gate: {json.dumps(gated)}")
         for name, n in launches.items():
             check(n > 0, f"{name} was not launched on the main path")

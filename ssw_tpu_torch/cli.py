@@ -411,6 +411,41 @@ def render_results(batch, targets, enc_targets, per_target, table, sam,
     return rendered
 
 
+def render_batch(batch, targets, enc_targets, mat, opts, table, sam, filt,
+                 flag, rc_allowed, err, mesh=None, device=None) -> list[str]:
+    """Synchronous align + render for one batch (the CLI main loop uses
+    the pipelined launch_batch/complete_batch pair instead).  With a mesh
+    (parallel/mesh.py), the forward pass runs data+sequence parallel
+    (pipeline.align_batch_sharded) and the host tail on device (default
+    the mesh's first cell); without one, on device (None: the card)."""
+    if mesh is None:
+        device = pipeline.resolve_device(device)
+        pends = launch_batch(batch, enc_targets, mat, opts, filt, flag,
+                             rc_allowed, device)
+        per_target = complete_batch(pends, filt)
+    else:
+        reads = [b["num"] for b in batch]
+        mask_lens = [len(r) // 2 for r in reads]
+        per_target = []
+        for enc_t in enc_targets:
+            req = pipeline.BatchRequest(
+                reads=reads, ref=enc_t, mat=mat, gapO=opts["gap_open"],
+                gapE=opts["gap_extension"], flag=flag, filters=filt,
+                filterd=0, mask_len=mask_lens, score_size=2)
+            res = pipeline.align_batch_sharded(req, mesh, device)
+            res_rc = None
+            if rc_allowed:
+                req_rc = pipeline.BatchRequest(
+                    reads=[b["num_rc"] for b in batch], ref=enc_t, mat=mat,
+                    gapO=opts["gap_open"], gapE=opts["gap_extension"],
+                    flag=flag, filters=filt, filterd=0, mask_len=mask_lens,
+                    score_size=2)
+                res_rc = pipeline.align_batch_sharded(req_rc, mesh, device)
+            per_target.append((res, res_rc))
+    return render_results(batch, targets, enc_targets, per_target, table,
+                          sam, filt, opts, err)
+
+
 def _emit_pair(out, err, b, t, enc_t, result, result_rc, table, sam,
                filt, opts):
     rec = b["rec"]

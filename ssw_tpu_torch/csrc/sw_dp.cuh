@@ -194,6 +194,15 @@ struct GateArgs {
   unsigned long long* hist;  // [kDepths + 1]
 };
 
+// The owned-column mode of the forward kernels (the sequence-parallel
+// shards, parallel/dist.py): per target column its global index and
+// whether this shard owns it.  A third kernel parameter of the owned
+// instantiations only, so that no other kernel's parameters change.
+struct ColArgs {
+  const int32_t* idx;  // (R,) global column index
+  const uint8_t* own;  // (R,) bool: the column may take a new best hit
+};
+
 // Thread t < kDepths holds thr[t], the others INT_MAX (read once).
 __device__ __forceinline__ int gate_lane_thr(const GateArgs& g, int t) {
   int v = INT_MAX;

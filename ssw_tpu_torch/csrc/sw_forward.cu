@@ -48,6 +48,21 @@
 // the config-4 leaf beat a chain of one branch per scan step where most
 // columns take depth 0 and lost where most take depth 3 (PERF.md).
 //
+// Owned mode (template flag Owned, base mode only; the JAX package's
+// forward_shared_ref_gated, pallas_sw.py:1039, whose kernel gates its best
+// hit in base mode at :299-311) is the sequence-parallel shard's forward
+// pass (parallel/dist.py): a shard runs halo warm-up columns before the
+// columns it owns, and only owned columns may take a new best hit, whose
+// end_ref is the column's global index.  idx/own come as a third kernel
+// parameter (sw::ColArgs) of the owned instantiations, so that the other
+// kernels' parameters and code stay as they were (their SASS is unchanged).
+// They are loaded as the target codes are, one coalesced load per 32
+// columns; own becomes a ballot (bit i: column i of the 32), so a column
+// pays a shift and a predicate, and idx is shuffled only when the best hit
+// moves.  Shuffling own every column instead cost 9 % on the config-4 leaf
+// (leaf_timing.py, PERF.md).  Every column still emits its maximum and
+// drives the gate.
+//
 // The quirk is a template flag too.  As a runtime bool it left nvcc to
 // choose between a loop split on it and the quirk's shuffles behind
 // per-step branches, and small edits flipped the choice.  On the config-4
@@ -81,9 +96,13 @@ struct FwdArgs {
   int32_t* scratch;         // (B, 7, L) for GlobRow, else null
 };
 
-template <int KT, bool BlockMax, bool Quirk, bool Dual, bool Gate>
-__global__ void sw_forward_kernel(const FwdArgs a, const sw::GateArgs g) {
+// The kernel body; Owned (base mode only) is the owned-column mode.
+template <int KT, bool BlockMax, bool Quirk, bool Dual, bool Gate, bool Owned>
+__device__ __forceinline__ void forward_body(const FwdArgs a,
+                                             const sw::GateArgs g,
+                                             const sw::ColArgs c) {
   static_assert(!Dual || (BlockMax && !Quirk), "dual: blockmax, quirk off");
+  static_assert(!Owned || !BlockMax, "owned: base mode only");
   extern __shared__ __align__(16) unsigned char smem[];
   const int wpb = blockDim.x >> 5, w = threadIdx.x >> 5, t = threadIdx.x & 31;
   const int b = blockIdx.x * wpb + w;
@@ -110,6 +129,8 @@ __global__ void sw_forward_kernel(const FwdArgs a, const sw::GateArgs g) {
   }
   int gmax = 0, end_ref = -1;
   int code_v = 0;
+  int idx_v = 0;         // owned: this lane's column's global index
+  unsigned own_bits = 0u;  // owned: bit i, column i of the 32 is owned
   int16_t mc_v = 0;
   int bm_run = 0;  // blockmax: running max of the current 256-column block
   int w_run = 0;   // dual: this thread's running max over its wmask lanes
@@ -125,18 +146,24 @@ __global__ void sw_forward_kernel(const FwdArgs a, const sw::GateArgs g) {
     if (lane == 0) {
       const int cc = col + t;
       code_v = cc < a.R ? a.ref[cc] : 0;
+      if constexpr (Owned) {
+        idx_v = cc < a.R ? c.idx[cc] : -1;
+        own_bits = __ballot_sync(sw::kFull, cc < a.R && c.own[cc]);
+      }
     }
     const int code = __shfl_sync(sw::kFull, code_v, lane);
     const int depth = Gate ? sw::gate_depth(hm, lane_thr) : sw::kDepths;
     const int colmax = sw::dp_column<KT>(r, K, t, code, a.gapO, a.gapE,
                                          quirk, depth);
     if constexpr (Gate) {
-      hm = colmax;
+      hm = colmax;  // every column, owned or not
       steps += depth == t;
     }
-    if (colmax > gmax) {  // warp-uniform
+    bool own = true;
+    if constexpr (Owned) own = (own_bits >> lane) & 1u;
+    if (own && colmax > gmax) {  // warp-uniform
       gmax = colmax;
-      end_ref = col;
+      end_ref = Owned ? __shfl_sync(sw::kFull, idx_v, lane) : col;
       sw::save_best<KT>(r, K);
     }
     if constexpr (BlockMax) {
@@ -182,6 +209,17 @@ __global__ void sw_forward_kernel(const FwdArgs a, const sw::GateArgs g) {
 }
 
 template <int KT, bool BlockMax, bool Quirk, bool Dual, bool Gate>
+__global__ void sw_forward_kernel(const FwdArgs a, const sw::GateArgs g) {
+  forward_body<KT, BlockMax, Quirk, Dual, Gate, false>(a, g, sw::ColArgs{});
+}
+
+template <int KT, bool Quirk, bool Gate>
+__global__ void sw_forward_owned_kernel(const FwdArgs a, const sw::GateArgs g,
+                                        const sw::ColArgs c) {
+  forward_body<KT, false, Quirk, false, Gate, true>(a, g, c);
+}
+
+template <int KT, bool BlockMax, bool Quirk, bool Dual, bool Gate>
 int launch_gated(const FwdArgs& a, const sw::GateArgs& g,
                  cudaStream_t stream) {
   int wpb;
@@ -218,6 +256,67 @@ int launch(const FwdArgs& a, const sw::GateArgs* g, cudaStream_t stream) {
                  : launch_mode<KT, false, false>(a, g, stream);
 }
 
+template <int KT, bool Quirk, bool Gate>
+int launch_owned_gated(const FwdArgs& a, const sw::GateArgs& g,
+                       const sw::ColArgs& c, cudaStream_t stream) {
+  int wpb;
+  size_t smem;
+  sw::launch_shape<KT>(a.n1, a.L, Quirk, &wpb, &smem);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        sw_forward_owned_kernel<KT, Quirk, Gate>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (e != cudaSuccess) return int(e);
+  }
+  const int grid = (a.B + wpb - 1) / wpb;
+  sw_forward_owned_kernel<KT, Quirk, Gate>
+      <<<grid, wpb * 32, smem, stream>>>(a, g, c);
+  return int(cudaGetLastError());
+}
+
+template <int KT>
+int launch_owned(const FwdArgs& a, const sw::GateArgs* g,
+                 const sw::ColArgs& c, cudaStream_t stream) {
+  const sw::GateArgs none{};
+  if (a.quirk)
+    return g ? launch_owned_gated<KT, true, true>(a, *g, c, stream)
+             : launch_owned_gated<KT, true, false>(a, none, c, stream);
+  return g ? launch_owned_gated<KT, false, true>(a, *g, c, stream)
+           : launch_owned_gated<KT, false, false>(a, none, c, stream);
+}
+
+__host__ FwdArgs fwd_args(const void* prof, const void* ref,
+                          const void* read_len, const void* col_mask,
+                          const void* seg_id, const void* seg_start, int B,
+                          int n1, int L, int R, int gapO, int gapE, int quirk,
+                          void* score, void* end_ref, void* end_read,
+                          void* maxcol, void* blockmax, int valid_len,
+                          void* wmask, void* scratch) {
+  FwdArgs a;
+  a.prof = static_cast<const int8_t*>(prof);
+  a.ref = static_cast<const int32_t*>(ref);
+  a.read_len = static_cast<const int32_t*>(read_len);
+  a.col_mask = static_cast<const uint8_t*>(col_mask);
+  a.seg_id = static_cast<const int8_t*>(seg_id);
+  a.seg_start = static_cast<const uint8_t*>(seg_start);
+  a.wmask = static_cast<const uint8_t*>(wmask);
+  a.B = B;
+  a.n1 = n1;
+  a.L = L;
+  a.R = R;
+  a.gapO = gapO;
+  a.gapE = gapE;
+  a.quirk = quirk;
+  a.score = static_cast<int32_t*>(score);
+  a.end_ref = static_cast<int32_t*>(end_ref);
+  a.end_read = static_cast<int32_t*>(end_read);
+  a.maxcol = static_cast<int16_t*>(maxcol);
+  a.blockmax = static_cast<int32_t*>(blockmax);
+  a.valid_len = valid_len;
+  a.scratch = static_cast<int32_t*>(scratch);
+  return a;
+}
+
 }  // namespace
 
 extern "C" {
@@ -242,33 +341,41 @@ int sw_forward_shared(const void* prof, const void* ref, const void* read_len,
                       void* stream) {
   if (B <= 0) return 0;
   if (wmask && (!blockmax || quirk)) return int(cudaErrorInvalidValue);
-  FwdArgs a;
-  a.prof = static_cast<const int8_t*>(prof);
-  a.ref = static_cast<const int32_t*>(ref);
-  a.read_len = static_cast<const int32_t*>(read_len);
-  a.col_mask = static_cast<const uint8_t*>(col_mask);
-  a.seg_id = static_cast<const int8_t*>(seg_id);
-  a.seg_start = static_cast<const uint8_t*>(seg_start);
-  a.wmask = static_cast<const uint8_t*>(wmask);
-  a.B = B;
-  a.n1 = n1;
-  a.L = L;
-  a.R = R;
-  a.gapO = gapO;
-  a.gapE = gapE;
-  a.quirk = quirk;
-  a.score = static_cast<int32_t*>(score);
-  a.end_ref = static_cast<int32_t*>(end_ref);
-  a.end_read = static_cast<int32_t*>(end_read);
-  a.maxcol = static_cast<int16_t*>(maxcol);
-  a.blockmax = static_cast<int32_t*>(blockmax);
-  a.valid_len = valid_len;
-  a.scratch = static_cast<int32_t*>(scratch);
+  const FwdArgs a = fwd_args(prof, ref, read_len, col_mask, seg_id,
+                             seg_start, B, n1, L, R, gapO, gapE, quirk, score,
+                             end_ref, end_read, maxcol, blockmax, valid_len,
+                             wmask, scratch);
   if (gate_thr && !gate_hist) return int(cudaErrorInvalidValue);
   const sw::GateArgs g = sw::gate_args(gate_thr, gate_hist);
   const sw::GateArgs* gp = gate_thr ? &g : nullptr;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   SW_DISPATCH_K(L / 32, launch, a, gp, s)
+}
+
+// The owned-column mode (base mode): sw_forward_shared's arguments without
+// blockmax and dual, plus idx (R,) int32 and own (R,) bool.
+int sw_forward_shared_owned(const void* prof, const void* ref,
+                            const void* read_len, const void* col_mask,
+                            const void* seg_id, const void* seg_start, int B,
+                            int n1, int L, int R, int gapO, int gapE,
+                            int quirk, void* score, void* end_ref,
+                            void* end_read, void* maxcol, const void* idx,
+                            const void* own, void* scratch,
+                            const void* gate_thr, void* gate_hist,
+                            void* stream) {
+  if (B <= 0) return 0;
+  if (!maxcol || !idx || !own) return int(cudaErrorInvalidValue);
+  const FwdArgs a = fwd_args(prof, ref, read_len, col_mask, seg_id,
+                             seg_start, B, n1, L, R, gapO, gapE, quirk, score,
+                             end_ref, end_read, maxcol, nullptr, 0, nullptr,
+                             scratch);
+  if (gate_thr && !gate_hist) return int(cudaErrorInvalidValue);
+  const sw::GateArgs g = sw::gate_args(gate_thr, gate_hist);
+  const sw::GateArgs* gp = gate_thr ? &g : nullptr;
+  const sw::ColArgs c{static_cast<const int32_t*>(idx),
+                      static_cast<const uint8_t*>(own)};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  SW_DISPATCH_K(L / 32, launch_owned, a, gp, c, s)
 }
 
 const char* sw_error_string(int code) {

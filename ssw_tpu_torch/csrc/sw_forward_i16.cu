@@ -42,6 +42,14 @@
 // lane-pair and column) and the warp reduces it once per 256 columns, so
 // each read of the pair keeps its own word channel.
 //
+// Owned mode (template flag Owned, base mode only; sw_forward.cu has the
+// design): the sequence-parallel shard's pass.  The column's ownership is
+// shared by both reads of the pair: neither may take a new best hit on a
+// column it does not own, and end_ref is the column's global index.  It
+// runs 11 % slower than the base mode on the config-4 leaf where the int32
+// kernel's owned mode runs at its base mode's pace (PERF.md; cause not
+// found).
+//
 // Gate mode (template flag Gate, any mode; ops/gate.py, sw_dp.cuh): the
 // pair shares one scan, so a column runs the depth that the larger of the
 // two reads' previous column maxima admits, and the warp counts its
@@ -223,9 +231,13 @@ __device__ __forceinline__ int end_read_i16(Row& r, int K, int t, int L,
   return cand == L ? rl - 1 : cand;
 }
 
-template <int KT, bool BlockMax, bool Dual, bool Gate>
-__global__ void sw_forward_i16_kernel(const I16Args a, const sw::GateArgs g) {
+// The kernel body; Owned (base mode only) is the owned-column mode.
+template <int KT, bool BlockMax, bool Dual, bool Gate, bool Owned>
+__device__ __forceinline__ void forward_i16_body(const I16Args a,
+                                                 const sw::GateArgs g,
+                                                 const sw::ColArgs c) {
   static_assert(!Dual || BlockMax, "dual is a blockmax mode");
+  static_assert(!Owned || !BlockMax, "owned: base mode only");
   extern __shared__ __align__(16) unsigned char smem[];
   const int wpb = blockDim.x >> 5, w = threadIdx.x >> 5, t = threadIdx.x & 31;
   const int pair = blockIdx.x * wpb + w;
@@ -261,6 +273,8 @@ __global__ void sw_forward_i16_kernel(const I16Args a, const sw::GateArgs g) {
     }
   }
   int gmax_a = 0, gmax_b = 0, er_a = -1, er_b = -1, code_v = 0;
+  int idx_v = 0;         // owned: this lane's column's global index
+  unsigned own_bits = 0u;  // owned: bit i, column i of the 32 is owned
   unsigned mc_v = 0u;
   unsigned bm_v = 0u;  // blockmax: packed running max of the current block
   unsigned w_v = 0u;   // dual: packed running max over the wmask lanes
@@ -277,6 +291,10 @@ __global__ void sw_forward_i16_kernel(const I16Args a, const sw::GateArgs g) {
     if (lane == 0) {
       const int cc = col + t;
       code_v = cc < a.R ? a.ref[cc] : 0;
+      if constexpr (Owned) {
+        idx_v = cc < a.R ? c.idx[cc] : -1;
+        own_bits = __ballot_sync(sw::kFull, cc < a.R && c.own[cc]);
+      }
     }
     const int code = __shfl_sync(sw::kFull, code_v, lane);
     const int depth = Gate ? sw::gate_depth(hm, lane_thr) : sw::kDepths;
@@ -284,13 +302,16 @@ __global__ void sw_forward_i16_kernel(const I16Args a, const sw::GateArgs g) {
                                        depth);
     const int ca = lo16(cm), cb = hi16(cm);
     if constexpr (Gate) {
-      hm = max(ca, cb);
+      hm = max(ca, cb);  // every column, owned or not
       steps += depth == t;
     }
-    const bool ua = ca > gmax_a, ub = cb > gmax_b;
+    bool own = true;  // the column's ownership, shared by both reads
+    if constexpr (Owned) own = (own_bits >> lane) & 1u;
+    const bool ua = own && ca > gmax_a, ub = own && cb > gmax_b;
     if (ua || ub) {  // warp-uniform
-      if (ua) { gmax_a = ca; er_a = col; }
-      if (ub) { gmax_b = cb; er_b = col; }
+      const int gcol = Owned ? __shfl_sync(sw::kFull, idx_v, lane) : col;
+      if (ua) { gmax_a = ca; er_a = gcol; }
+      if (ub) { gmax_b = cb; er_b = gcol; }
       const unsigned m = halves(ua, ub);
 #pragma unroll
       for (int k = 0; k < KK; ++k) r.HB(k) = (r.H(k) & m) | (r.HB(k) & ~m);
@@ -354,12 +375,34 @@ __global__ void sw_forward_i16_kernel(const I16Args a, const sw::GateArgs g) {
 }
 
 template <int KT, bool BlockMax, bool Dual, bool Gate>
+__global__ void sw_forward_i16_kernel(const I16Args a, const sw::GateArgs g) {
+  forward_i16_body<KT, BlockMax, Dual, Gate, false>(a, g, sw::ColArgs{});
+}
+
+template <int KT, bool Gate>
+__global__ void sw_forward_i16_owned_kernel(const I16Args a,
+                                            const sw::GateArgs g,
+                                            const sw::ColArgs c) {
+  forward_i16_body<KT, false, false, Gate, true>(a, g, c);
+}
+
+// Threads per block (4 warps, fewer where the profiles would not fit in
+// 48 KB of shared memory) and dynamic shared memory of a launch.
+template <int KT>
+void i16_launch_shape(const I16Args& a, int* wpb, size_t* smem) {
+  const size_t per_warp = KT > 0 ? size_t(a.n1) * a.L * 4 : 0;
+  int w = 4;
+  while (w > 1 && w * per_warp > 48 * 1024) w >>= 1;
+  *wpb = w;
+  *smem = w * per_warp;
+}
+
+template <int KT, bool BlockMax, bool Dual, bool Gate>
 int launch_gated(const I16Args& a, const sw::GateArgs& g,
                  cudaStream_t stream) {
-  const size_t per_warp = KT > 0 ? size_t(a.n1) * a.L * 4 : 0;
-  int wpb = 4;
-  while (wpb > 1 && wpb * per_warp > 48 * 1024) wpb >>= 1;
-  const size_t smem = wpb * per_warp;
+  int wpb;
+  size_t smem;
+  i16_launch_shape<KT>(a, &wpb, &smem);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         sw_forward_i16_kernel<KT, BlockMax, Dual, Gate>,
@@ -387,6 +430,60 @@ int launch(const I16Args& a, const sw::GateArgs* g, cudaStream_t stream) {
                     : launch_mode<KT, false>(a, g, stream);
 }
 
+template <int KT, bool Gate>
+int launch_owned_gated(const I16Args& a, const sw::GateArgs& g,
+                       const sw::ColArgs& c, cudaStream_t stream) {
+  int wpb;
+  size_t smem;
+  i16_launch_shape<KT>(a, &wpb, &smem);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        sw_forward_i16_owned_kernel<KT, Gate>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (e != cudaSuccess) return int(e);
+  }
+  const int pairs = (a.B + 1) / 2;
+  const int grid = (pairs + wpb - 1) / wpb;
+  sw_forward_i16_owned_kernel<KT, Gate>
+      <<<grid, wpb * 32, smem, stream>>>(a, g, c);
+  return int(cudaGetLastError());
+}
+
+template <int KT>
+int launch_owned(const I16Args& a, const sw::GateArgs* g,
+                 const sw::ColArgs& c, cudaStream_t stream) {
+  if (g) return launch_owned_gated<KT, true>(a, *g, c, stream);
+  return launch_owned_gated<KT, false>(a, sw::GateArgs{}, c, stream);
+}
+
+__host__ I16Args i16_args(const void* prof, const void* ref,
+                          const void* read_len, const void* col_mask, int B,
+                          int n1, int L, int R, int gapO, int gapE,
+                          void* score, void* end_ref, void* end_read,
+                          void* maxcol, void* blockmax, int valid_len,
+                          void* wmask, void* scratch) {
+  I16Args a;
+  a.prof = static_cast<const int8_t*>(prof);
+  a.ref = static_cast<const int32_t*>(ref);
+  a.read_len = static_cast<const int32_t*>(read_len);
+  a.col_mask = static_cast<const uint8_t*>(col_mask);
+  a.wmask = static_cast<const uint8_t*>(wmask);
+  a.B = B;
+  a.n1 = n1;
+  a.L = L;
+  a.R = R;
+  a.gapO = gapO;
+  a.gapE = gapE;
+  a.score = static_cast<int32_t*>(score);
+  a.end_ref = static_cast<int32_t*>(end_ref);
+  a.end_read = static_cast<int32_t*>(end_read);
+  a.maxcol = static_cast<int16_t*>(maxcol);
+  a.blockmax = static_cast<int32_t*>(blockmax);
+  a.valid_len = valid_len;
+  a.scratch = static_cast<unsigned*>(scratch);
+  return a;
+}
+
 }  // namespace
 
 extern "C" {
@@ -409,30 +506,38 @@ int sw_forward_shared_i16(const void* prof, const void* ref,
                           void* gate_hist, void* stream) {
   if (B <= 0) return 0;
   if (wmask && !blockmax) return int(cudaErrorInvalidValue);
-  I16Args a;
-  a.prof = static_cast<const int8_t*>(prof);
-  a.ref = static_cast<const int32_t*>(ref);
-  a.read_len = static_cast<const int32_t*>(read_len);
-  a.col_mask = static_cast<const uint8_t*>(col_mask);
-  a.wmask = static_cast<const uint8_t*>(wmask);
-  a.B = B;
-  a.n1 = n1;
-  a.L = L;
-  a.R = R;
-  a.gapO = gapO;
-  a.gapE = gapE;
-  a.score = static_cast<int32_t*>(score);
-  a.end_ref = static_cast<int32_t*>(end_ref);
-  a.end_read = static_cast<int32_t*>(end_read);
-  a.maxcol = static_cast<int16_t*>(maxcol);
-  a.blockmax = static_cast<int32_t*>(blockmax);
-  a.valid_len = valid_len;
-  a.scratch = static_cast<unsigned*>(scratch);
+  const I16Args a = i16_args(prof, ref, read_len, col_mask, B, n1, L, R,
+                             gapO, gapE, score, end_ref, end_read, maxcol,
+                             blockmax, valid_len, wmask, scratch);
   if (gate_thr && !gate_hist) return int(cudaErrorInvalidValue);
   const sw::GateArgs g = sw::gate_args(gate_thr, gate_hist);
   const sw::GateArgs* gp = gate_thr ? &g : nullptr;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   SW_DISPATCH_K(L / 32, launch, a, gp, s)
+}
+
+// The owned-column mode (base mode): sw_forward_shared_i16's arguments
+// without blockmax and dual, plus idx (R,) int32 and own (R,) bool.
+int sw_forward_shared_i16_owned(const void* prof, const void* ref,
+                                const void* read_len, const void* col_mask,
+                                int B, int n1, int L, int R, int gapO,
+                                int gapE, void* score, void* end_ref,
+                                void* end_read, void* maxcol, const void* idx,
+                                const void* own, void* scratch,
+                                const void* gate_thr, void* gate_hist,
+                                void* stream) {
+  if (B <= 0) return 0;
+  if (!maxcol || !idx || !own) return int(cudaErrorInvalidValue);
+  const I16Args a = i16_args(prof, ref, read_len, col_mask, B, n1, L, R,
+                             gapO, gapE, score, end_ref, end_read, maxcol,
+                             nullptr, 0, nullptr, scratch);
+  if (gate_thr && !gate_hist) return int(cudaErrorInvalidValue);
+  const sw::GateArgs g = sw::gate_args(gate_thr, gate_hist);
+  const sw::GateArgs* gp = gate_thr ? &g : nullptr;
+  const sw::ColArgs c{static_cast<const int32_t*>(idx),
+                      static_cast<const uint8_t*>(own)};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  SW_DISPATCH_K(L / 32, launch_owned, a, gp, c, s)
 }
 
 const char* sw_error_string(int code) {

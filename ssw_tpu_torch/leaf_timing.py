@@ -8,8 +8,10 @@ the target padded to 2^20 columns, DNA m2/x2/o3/e1.  For each tree given
 (a checkout, e.g. a parent commit unpacked with `git archive`), in its own
 process and in the order given, prints one JSON line of CUDA-event times in
 ms: the int32 kernel with the quirk off and on, and the int16 tier, in base
-mode and, where the tree has them, in blockmax mode and with the
-bounded-radius gate.  Needs a CUDA card.
+mode and, where the tree has them, in blockmax mode, with the
+bounded-radius gate, and in the owned-column mode (the leaf as shard 1 of a
+seq split: 320 halo columns before the owned ones) beside the base mode.
+Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -50,9 +52,12 @@ def _time_tree(tree: str) -> dict:
     args = tuple(torch.as_tensor(np.ascontiguousarray(a)).cuda() for a in (
         prof, ref, rl, geo.col_mask, geo.seg_id, geo.seg_start)) + (3, 1)
 
-    def ms(quirk, kw, reps=3):
+    def ms(quirk, kw, reps=3, fn=None):
         def run():
-            cuda_sw.forward_shared(*args, quirk, **kw)
+            if fn is None:
+                cuda_sw.forward_shared(*args, quirk, **kw)
+            else:
+                fn(quirk, kw)
         run()
         torch.cuda.synchronize()
         a = torch.cuda.Event(enable_timing=True)
@@ -82,6 +87,18 @@ def _time_tree(tree: str) -> dict:
             res[f"i16_bm_{label}_ms"] = ms(False, dict(bm, max_sub=2,
                                                         gate=thr))
             res[f"int32_quirk_{label}_ms"] = ms(True, {"gate": thr})
+    if hasattr(cuda_sw, "forward_shared_gated"):
+        halo = 320
+        idx = torch.arange(len(ref), dtype=torch.int32, device="cuda") - halo
+        own = idx >= 0
+
+        def owned(quirk, kw):
+            cuda_sw.forward_shared_gated(args[0], args[1], idx, own,
+                                         *args[2:], quirk, **kw)
+        for label, kw in (("int32", {}), ("i16", {"max_sub": 2})):
+            res[f"{label}_base_ms"] = ms(False, kw)
+            res[f"{label}_owned_ms"] = ms(False, kw, fn=owned)
+            res[f"{label}_base2_ms"] = ms(False, kw)
     return res
 
 

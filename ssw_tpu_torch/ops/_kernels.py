@@ -34,11 +34,13 @@ _SIGNATURES = {
     "sw_forward": {
         "sw_forward_shared": [_P] * 6 + [_I] * 7 + [_P] * 5 + [_I]
                              + [_P] * 5,
+        "sw_forward_shared_owned": [_P] * 6 + [_I] * 7 + [_P] * 10,
         "sw_forward_scratch_per_read": [_I],
     },
     "sw_forward_i16": {
         "sw_forward_shared_i16": [_P] * 4 + [_I] * 6 + [_P] * 5 + [_I]
                                  + [_P] * 5,
+        "sw_forward_shared_i16_owned": [_P] * 4 + [_I] * 6 + [_P] * 10,
         "sw_forward_i16_scratch_per_pair": [_I],
     },
     "sw_forward_packed": {

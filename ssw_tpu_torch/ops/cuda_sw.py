@@ -1,8 +1,10 @@
 """Wrappers of the hand-written CUDA DP kernels (csrc/sw_forward.cu,
 csrc/sw_forward_i16.cu, csrc/sw_forward_packed.cu, csrc/sw_perread.cu).  The
 two forward kernels have a base mode (per-column maxima), a blockmax mode
-(per-256-column maxima, the streaming suboptimal scan's input) and a dual
-mode (blockmax for both tiers' row masks at once); the packed kernel runs
+(per-256-column maxima, the streaming suboptimal scan's input), a dual
+mode (blockmax for both tiers' row masks at once) and an owned-column mode
+(forward_shared_gated: base mode with global column indices and a best-hit
+gate, the sequence-parallel shards' pass); the packed kernel runs
 lane-packed reads (ops/pack.py) in blockmax or dual mode.  Each mode of each
 kernel has its own launch count.
 
@@ -63,6 +65,7 @@ LAUNCHES = {"forward_shared": 0, "forward_shared_i16": 0,
             "forward_shared_blockmax": 0, "forward_shared_i16_blockmax": 0,
             "forward_shared_dual": 0, "forward_shared_i16_dual": 0,
             "forward_shared_packed": 0, "forward_shared_packed_dual": 0,
+            "forward_shared_owned": 0, "forward_shared_i16_owned": 0,
             "forward_perread": 0}
 # of those, the launches that ran with the gate (forward kernels only)
 GATED = {name: 0 for name in LAUNCHES if name != "forward_perread"}
@@ -146,13 +149,20 @@ def _gate_args(gate, dev):
 
 def _launch_shared(profile, ref, read_len, col_mask, seg_id, seg_start,
                    gapO, gapE, quirk, i16, blockmax=False, valid_len=None,
-                   wmask=None, gate=None):
+                   wmask=None, gate=None, idx=None, own=None):
     """One launch of the int32 kernel, or of the int16 tier (quirk off), in
-    base, blockmax or dual (wmask) mode, gated with gate=; not counted."""
+    base, blockmax or dual (wmask) mode, or in the owned-column mode (idx,
+    own; base mode), gated with gate=; not counted."""
     B, n1, L, dev = _geometry_checks(profile, read_len, col_mask, seg_id,
                                      seg_start)
     R = int(ref.shape[0])
     _check("ref", ref, torch.int32, (R,), dev)
+    owned = idx is not None
+    if owned:
+        if blockmax:
+            raise ValueError("the owned-column mode is a base mode")
+        _check("idx", idx, torch.int32, (R,), dev)
+        _check("own", own, torch.bool, (R,), dev)
     if wmask is not None:
         if quirk or not blockmax:
             raise ValueError("the dual tier is a blockmax mode with the "
@@ -179,20 +189,34 @@ def _launch_shared(profile, ref, read_len, col_mask, seg_id, seg_start,
             lib = _kernels.load("sw_forward_i16")
             scratch = _scratch(lib, "sw_forward_i16_scratch_per_pair",
                                (B + 1) // 2, L, dev)
-            rc = lib.sw_forward_shared_i16(
-                profile.data_ptr(), ref.data_ptr(), read_len.data_ptr(),
-                col_mask.data_ptr(), B, n1, L, R, int(gapO), int(gapE),
-                *outs, _ptr(wmask), _ptr(scratch), thr, hist, stream)
+            head = (profile.data_ptr(), ref.data_ptr(), read_len.data_ptr(),
+                    col_mask.data_ptr(), B, n1, L, R, int(gapO), int(gapE))
+            if owned:
+                rc = lib.sw_forward_shared_i16_owned(
+                    *head, *outs[:4], idx.data_ptr(), own.data_ptr(),
+                    _ptr(scratch), thr, hist, stream)
+            else:
+                rc = lib.sw_forward_shared_i16(
+                    *head, *outs, _ptr(wmask), _ptr(scratch), thr, hist,
+                    stream)
         else:
             lib = _kernels.load("sw_forward")
             scratch = _scratch(lib, "sw_forward_scratch_per_read", B, L,
                                dev)
-            rc = lib.sw_forward_shared(
-                profile.data_ptr(), ref.data_ptr(), read_len.data_ptr(),
-                col_mask.data_ptr(), seg_id.data_ptr(), seg_start.data_ptr(),
-                B, n1, L, R, int(gapO), int(gapE), int(bool(quirk)), *outs,
-                _ptr(wmask), _ptr(scratch), thr, hist, stream)
-    _raise_on(lib, rc, shared_kernel_name(i16, blockmax, wmask is not None))
+            head = (profile.data_ptr(), ref.data_ptr(), read_len.data_ptr(),
+                    col_mask.data_ptr(), seg_id.data_ptr(),
+                    seg_start.data_ptr(), B, n1, L, R, int(gapO), int(gapE),
+                    int(bool(quirk)))
+            if owned:
+                rc = lib.sw_forward_shared_owned(
+                    *head, *outs[:4], idx.data_ptr(), own.data_ptr(),
+                    _ptr(scratch), thr, hist, stream)
+            else:
+                rc = lib.sw_forward_shared(
+                    *head, *outs, _ptr(wmask), _ptr(scratch), thr, hist,
+                    stream)
+    _raise_on(lib, rc, owned_kernel_name(i16) if owned else
+              shared_kernel_name(i16, blockmax, wmask is not None))
     return score, end_ref, end_read, maxcol
 
 
@@ -271,6 +295,40 @@ def forward_shared(profile, ref, read_len, col_mask, seg_id, seg_start,
     out = _launch_shared(profile, ref, read_len, col_mask, seg_id,
                          seg_start, gapO, gapE, quirk, i16, blockmax,
                          valid_len, wmask, gate)
+    LAUNCHES[name] += 1
+    GATED[name] += gate is not None
+    return out
+
+
+def owned_kernel_name(i16: bool) -> str:
+    """The LAUNCHES key of a forward_shared_gated launch."""
+    return "forward_shared" + ("_i16" if i16 else "") + "_owned"
+
+
+def forward_shared_gated(profile, ref, idx, own, read_len, col_mask, seg_id,
+                         seg_start, gapO: int, gapE: int, quirk: bool = True,
+                         max_sub: int | None = None, gate=None):
+    """forward_shared in the owned-column mode, the counterpart of the JAX
+    package's forward_shared_ref_gated (the sequence-parallel shards of
+    parallel/dist.py): idx (R,) int32 is each local column's global index
+    and own (R,) bool says which columns may take a new best hit; end_ref
+    is the global index of the best column.  Returns (score, end_ref,
+    end_read (B,) int32, maxcol (B, R) int16 in [0, 32767]) with maxima for
+    every local column.  The int16 tier under the same i16_exact rule
+    (counted as forward_shared_i16_owned, else forward_shared_owned), and
+    gate= as forward_shared's (the bounded-radius gate)."""
+    i16 = i16_exact(int(profile.shape[2]), gapO, gapE, max_sub, quirk)
+    name = owned_kernel_name(i16)
+    if profile.device.type == "cpu":
+        res = scan_sw.forward_shared_ref_gated(
+            profile, ref, idx, own, read_len, col_mask, seg_id, seg_start,
+            gapO, gapE, quirk, gate=gate, pairs=i16, steps=gate is not None)
+        return _count_plain_steps(res, gate)
+    if i16:
+        _i16_parity(profile.device)
+    out = _launch_shared(profile, ref, read_len, col_mask, seg_id,
+                         seg_start, gapO, gapE, quirk, i16, gate=gate,
+                         idx=idx, own=own)
     LAUNCHES[name] += 1
     GATED[name] += gate is not None
     return out

@@ -127,7 +127,7 @@ def forward_shared_ref(profile, ref, read_len, col_mask, seg_id, seg_start,
                        gapO: int, gapE: int, quirk: bool = True,
                        blockmax: bool = False, valid_len: int | None = None,
                        wmask=None, gate=None, pairs: bool = False,
-                       steps: bool = False):
+                       steps: bool = False, idx=None, own=None):
     """Forward pass of a read batch against one shared target.
 
     Returns (score (B,), end_ref (B,), end_read (B,), max_column (B, R)
@@ -152,7 +152,12 @@ def forward_shared_ref(profile, ref, read_len, col_mask, seg_id, seg_start,
     change.  pairs: the int16 tier's warps (reads 2p and 2p+1 share one
     depth, from the larger of their two maxima).  steps: also return the
     (6,) int64 count of warp-column steps by depth (one per pair with
-    pairs), as the kernels' histogram counts them."""
+    pairs), as the kernels' histogram counts them.
+
+    idx (R,) int32 and own (R,) bool, together: the owned-column mode of
+    forward_shared_ref_gated.  Only columns with own[j] may take a new best
+    hit, and end_ref is idx[j] of its column; every column still emits its
+    maximum and drives the gate."""
     B, _, L = profile.shape
     dev = profile.device
     dual = wmask is not None
@@ -164,6 +169,8 @@ def forward_shared_ref(profile, ref, read_len, col_mask, seg_id, seg_start,
     col_mask = col_mask.to(torch.bool)
     R = int(ref.shape[0])
     codes = ref.tolist()
+    cols = range(R) if idx is None else idx.tolist()
+    owned = [True] * R if own is None else own.tolist()
     state = _init_state(B, L, dev)
     mc = torch.empty((R, B), dtype=_I32, device=dev)
     mcw = None
@@ -187,7 +194,8 @@ def forward_shared_ref(profile, ref, read_len, col_mask, seg_id, seg_start,
                 hist += torch.bincount(dp, minlength=gate_mod.DEPTHS + 1)
         state, mc[j] = _column_update(prof_t[codes[j]], state, gapO, gapE,
                                       decay, seg_bias, seg_reset, col_mask,
-                                      j, quirk, depth=depth)
+                                      cols[j], quirk, gate=bool(owned[j]),
+                                      depth=depth)
         hm = mc[j]
         if dual:
             mcw[j] = torch.where(wmask, state[0], 0).amax(dim=1)
@@ -204,6 +212,22 @@ def forward_shared_ref(profile, ref, read_len, col_mask, seg_id, seg_start,
         out = (score, end_ref, end_read,
                mc.clamp_max(32767).to(torch.int16).t().contiguous())
     return (out, hist) if steps else out
+
+
+def forward_shared_ref_gated(profile, ref, idxs, owned, read_len, col_mask,
+                             seg_id, seg_start, gapO: int, gapE: int,
+                             quirk: bool = True, gate=None,
+                             pairs: bool = False, steps: bool = False):
+    """forward_shared_ref with per-column global indices idxs (R,) int32
+    and an owned (R,) bool gate on best-hit tracking: the counterpart of
+    the JAX package's scan_sw.forward_shared_ref_gated, used by the
+    sequence-parallel shards whose warm-up (halo) columns are inexact
+    (parallel/dist.py).  Per-column maxima (B, R) int16 are emitted for
+    every local column.  gate/pairs/steps as forward_shared_ref's (the
+    bounded-radius gate, not this ownership gate)."""
+    return forward_shared_ref(profile, ref, read_len, col_mask, seg_id,
+                              seg_start, gapO, gapE, quirk, gate=gate,
+                              pairs=pairs, steps=steps, idx=idxs, own=owned)
 
 
 def forward_perread_ref(profile, refw, read_len, col_mask, seg_id, seg_start,

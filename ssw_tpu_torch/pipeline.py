@@ -39,6 +39,7 @@ import torch
 from ssw_tpu_torch.core import oracle
 from ssw_tpu_torch.core.encoding import matrix_bias
 from ssw_tpu_torch.ops import common, cuda_sw, gate, pack, scan_sw, subopt
+from ssw_tpu_torch.parallel import dist
 
 # -- observability hook (profiling.py) --------------------------------------
 # an active GcupsCounter collects per-phase seconds + useful-cell counts
@@ -1082,3 +1083,144 @@ def _reverse_complete(handle, idx, end_ref, end_read):
     ref_begin = end_ref[idx] - er
     read_begin = end_read[idx] - ed
     return (ref_begin.astype(np.int32), read_begin.astype(np.int32), s)
+
+
+def _finish_batch(req: BatchRequest, dev, score, end_ref, end_read, score2,
+                  ref_end2, word, null_mask, reads_d, ref_codes, mat_ext_d,
+                  quirk: bool) -> list:
+    """The host tail for results computed elsewhere (the sharded path):
+    begin-finding reverse passes on `dev` (reads_d: the read codes there,
+    row b = req.reads[b]; ref_codes: the target there, padded), filter and
+    flag gating, banded traceback (ref: src/ssw.c:905-977)."""
+    st = _LeafState()
+    st.req, st.dev, st.B, st.n = req, dev, len(req.reads), req.mat.shape[0]
+    st.ref_len, st.quirk = len(req.ref), quirk
+    st.score, st.end_ref, st.end_read = score, end_ref, end_read
+    st.word, st.null_mask = word, null_mask
+    st.reads_d, st.ref_codes, st.mat_ext_d = reads_d, ref_codes, mat_ext_d
+    fin = _finish_launch(st)
+    return _finish_complete(req, fin, score, end_ref, end_read, score2,
+                            ref_end2, null_mask)
+
+
+def align_batch_sharded(req: BatchRequest, mesh, device=None) -> list:
+    """align_batch with the forward pass + suboptimal scan running over a
+    (data x seq) device mesh (parallel/mesh.py): reads data-parallel, the
+    target sequence-parallel with halo re-compute and the best-hit merge
+    (parallel/dist.py).  The begin-finding reverse pass and the traceback
+    run on `device` (default mesh.devices[0, 0]).  Bit-identical to
+    align_batch; the counterpart of the JAX package's
+    pipeline.align_batch_sharded."""
+    B = len(req.reads)
+    if B == 0:
+        return []
+    if req.gapO <= req.gapE:
+        return pipeline_fallback(req)
+    dev = resolve_device(mesh.devices[0, 0] if device is None else device)
+    n = req.mat.shape[0]
+    bias = matrix_bias(req.mat)
+    ref_len = len(req.ref)
+    mask_len = np.maximum(_as_masklen_array(req.mask_len, B), 0)
+
+    D = mesh.shape["data"]
+    S = mesh.shape["seq"]
+    Bp = (B + D - 1) // D * D
+    reads = list(req.reads) + [req.reads[0]] * (Bp - B)
+    read_len = np.array([len(r) for r in reads], dtype=np.int32)
+    ml = np.concatenate([mask_len, np.full(Bp - B, 15, np.int32)])
+
+    max_rl = int(read_len.max())
+    L = common.bucket_size(max(common.pad_total(max_rl, word=False), 1), 64)
+    reads_padded = common.pad_reads(reads, L, pad_code=n)
+    word_tier = req.score_size == 1
+    quirk = needs_quirk(req.mat, req.gapE)
+    max_sub = int(np.max(np.abs(req.mat)))
+    if quirk and L * (max_sub + req.gapE) + req.gapO >= int(scan_sw.SEG_BUMP):
+        return pipeline_fallback(req)
+
+    # pad the target so every seq shard gets the same column count; the
+    # virtual letter rides diagonally at zero cost and padded columns are
+    # masked out of the suboptimal scan by ref_len.  Shard 0's halo is the
+    # virtual letter too.
+    halo = _window_len(max_rl, ref_len, req.mat, req.gapO, req.gapE)
+    Rp = (ref_len + 256 * S - 1) // (256 * S) * (256 * S)
+    ref_ext = np.full(halo + Rp, n, dtype=np.int32)
+    ref_ext[halo:halo + ref_len] = req.ref
+    # one upload each serves forward, re-run and reverse passes
+    ref_ext_d = _to(dev, ref_ext)
+    mat_ext_d = _to(dev, common.extend_matrix(req.mat), torch.int8)
+    reads_d = _to(dev, reads_padded, torch.int8)
+    rl_d = _to(dev, read_len)
+    ml_d = _to(dev, ml)
+    gate_thr = _gate(L, req.gapO, req.gapE, max_sub, quirk)
+    if _counter is not None:
+        _counter.add_pairs(read_len[:B], ref_len)
+
+    def fwd(rows_d, col_word, seg_word: bool):
+        """The sharded forward pass of reads rows_d (device indices, or
+        None for all): one stacked download of its five (k,) results."""
+        sel = (lambda x: x) if rows_d is None else (lambda x: x[rows_d])
+        profile, cm_d, seg_d, ss_d = _prep_device(
+            sel(reads_d), sel(rl_d), mat_ext_d, _to(dev, col_word), L,
+            seg_word)
+        out = dist.sharded_forward(
+            mesh, profile, ref_ext_d, sel(rl_d), cm_d, seg_d, ss_d,
+            req.gapO, req.gapE, sel(ml_d), ref_len, halo, quirk,
+            _to(dev, col_word), max_sub=max_sub, gate=gate_thr)
+        return [x.copy() for x in torch.stack(out).cpu().numpy()]
+
+    # speculative tier masks, like align_batch: when the quirk is off the
+    # tiers differ only in col_mask row padding, so potentially-overflowing
+    # reads get word rows (and word suboptimal edges) up front; only
+    # might-but-didn't reads re-run, with byte rows.  Quirk on: word-tier
+    # reads re-run with word geometry (the whole DP is tier-dependent).
+    might = np.zeros(Bp, dtype=bool)
+    if req.score_size == 2 and not quirk:
+        might = read_len.astype(np.int64) * max_sub + bias >= 255
+    word = np.full(Bp, word_tier)
+    with _phase("forward"):
+        score, end_ref, end_read, score2, ref_end2 = fwd(
+            None, word | might, word_tier)
+    if req.score_size == 2:
+        need_word = score + bias >= 255
+        word[need_word] = True
+        rerun = need_word if quirk else (might & ~need_word)
+        rerun_word = bool(quirk)
+        if rerun.any():
+            # subset re-run, padded to a stable size that stays divisible
+            # by the data axis
+            idx = np.nonzero(rerun)[0]
+            k = len(idx)
+            unit = 64 if 64 % D == 0 else 64 * D
+            pad = common.round_up(k, unit) - k
+            idx_p = np.concatenate([idx, np.repeat(idx[:1], pad)])
+            with _phase("rerun"):
+                if _counter is not None:
+                    _counter.add_pairs(read_len[idx], ref_len)
+                s_r, er_r, ed_r, s2_r, re2_r = (
+                    x[:k] for x in fwd(_to(dev, idx_p),
+                                       np.full(len(idx_p), rerun_word),
+                                       rerun_word))
+            score[idx] = s_r
+            end_ref[idx] = er_r
+            end_read[idx] = ed_r
+            score2[idx] = s2_r
+            ref_end2[idx] = re2_r
+    score = np.where(word, np.minimum(score, 32767), score)
+
+    # drop the data-parallel padding before the host stages (no duplicate
+    # warnings or tracebacks), and honour score_size as align_batch does
+    # (0: NULL on byte overflow; ref: src/ssw.c:887-891)
+    score, end_ref, end_read = score[:B], end_ref[:B], end_read[:B]
+    score2, ref_end2, word = score2[:B], ref_end2[:B], word[:B]
+    null_mask = np.zeros(B, dtype=bool)
+    if req.score_size == 0:
+        null_mask = score + bias >= 255
+        for _ in range(int(null_mask.sum())):  # ref: src/ssw.c:888
+            sys.stderr.write(
+                "Please set 2 to the score_size parameter of the function "
+                "ssw_init, otherwise the alignment results will be "
+                "incorrect.\n")
+    return _finish_batch(req, dev, score, end_ref, end_read, score2,
+                         ref_end2, word, null_mask, reads_d,
+                         ref_ext_d[halo:], mat_ext_d, quirk)

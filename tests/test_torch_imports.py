@@ -33,7 +33,10 @@ def _no_gpu_env():
 
 def test_no_module_imports_jax_or_ssw_tpu():
     mods = _modules()
-    assert "ssw_tpu_torch.pipeline" in mods and "ssw_tpu_torch.cli" in mods
+    assert {"ssw_tpu_torch.pipeline", "ssw_tpu_torch.cli",
+            "ssw_tpu_torch.dcli", "ssw_tpu_torch.parallel.mesh",
+            "ssw_tpu_torch.parallel.dist",
+            "ssw_tpu_torch.parallel.multihost"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

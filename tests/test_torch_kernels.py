@@ -271,6 +271,8 @@ def test_cuda_wrappers_route_cpu_tensors_to_plain():
                                        "forward_shared_i16_dual": 0,
                                        "forward_shared_packed": 0,
                                        "forward_shared_packed_dual": 0,
+                                       "forward_shared_owned": 0,
+                                       "forward_shared_i16_owned": 0,
                                        "forward_perread": 0}
 
 
