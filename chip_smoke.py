@@ -69,7 +69,19 @@ Phases (any failure exits non-zero before the final line):
      beside unpacked leaves of the same reads in turns, each gated
      kernel family beside its ungated launch in turns, and the owned
      kernels beside their base mode on the same inputs in turns (the
-     largest config-5 shard); prints the {"kernels": [...]} line
+     largest config-5 shard)
+  3l. (after phase 3) the measurement tools' kernels (ssw_tpu_torch/tools:
+     probe_swar, probe_i16, kernel_lab's sw_lab) against their plain twins,
+     every lab variant with a comparison also against full or the
+     production kernel (kernel_lab.verify), among the inputs one at the
+     lab entry point's B 128, L 256; tolerance 0
+  7. the tools' entry points as a user runs them (launch counts from 0,
+     each tool kernel must launch), then their timing: ns per chain step
+     of each max form (one warp, the whole card), the DPX SASS table, the
+     lab's variants in turns against full on the config-4 int32 leaf's
+     slice, each held there to its plain twin and kernel-run comparisons
+     (tolerance 0), and full against the production kernel on the whole
+     leaf (within 3 %); prints the {"kernels": [...]} line
 
 The last line of stdout is {"ok": true, "device": {...}}.  Imports nothing
 of JAX and nothing of the JAX package.
@@ -140,29 +152,12 @@ def dna_mat(match, mismatch):
     return mat
 
 
-def make_shared(torch, common, dev, *, B, L, R, mat, word, seed):
-    """Random reads (some embedded in the target) and their geometry."""
-    rng = np.random.default_rng(seed)
-    n = mat.shape[0]
-    ref = rng.integers(0, n - 1, R).astype(np.int32)
-    lo = max(L // 3, 2)
-    read_len = rng.integers(lo, max(lo + 1, L - 16), B).astype(np.int32)
-    reads = []
-    for b, ln in enumerate(read_len):
-        if b % 2 and R > ln:
-            s = int(rng.integers(0, R - ln))
-            r = ref[s:s + ln].copy()
-            m = rng.random(ln) < 0.05
-            r[m] = rng.integers(0, n - 1, int(m.sum()))
-        else:
-            r = rng.integers(0, n - 1, ln).astype(np.int32)
-        reads.append(r)
-    rp = common.pad_reads(reads, L, n)
-    prof = common.build_profile(rp, read_len, common.extend_matrix(mat))
-    geo = common.batch_geometry(read_len, L, word=word)
-    t = lambda a: torch.as_tensor(np.ascontiguousarray(a)).to(dev)
-    return (t(prof), t(ref), t(read_len), t(geo.col_mask), t(geo.seg_id),
-            t(geo.seg_start)), reads, ref
+def make_shared(dev, **kw):
+    """Random reads (some embedded in the target) and their geometry:
+    ssw_tpu_torch.tools._common.shared_case, the generator of
+    i16_fault.failing_input too."""
+    from ssw_tpu_torch.tools import _common as tools_common
+    return tools_common.shared_case(dev, **kw)
 
 
 def make_perread(torch, common, dev, *, B, L, W, mat, word, seed):
@@ -263,7 +258,7 @@ def phase_kernels(torch, dev):
 
     for label, kind, kw in cases:
         if kind == "shared":
-            args, _, _ = make_shared(torch, common, dev, B=kw["B"], L=kw["L"],
+            args, _, _ = make_shared(dev, B=kw["B"], L=kw["L"],
                                      R=kw["R"], mat=kw["mat"],
                                      word=kw["word"], seed=kw["seed"])
             # valid_len inside the last block, not a multiple of 256: the
@@ -292,6 +287,22 @@ def phase_kernels(torch, dev):
         worst["forward_perread"] = max(worst["forward_perread"], err)
         log(f"  {label}: max_abs_err {err}")
         check(err == 0, f"{label}: kernel != plain (max_abs_err {err})")
+    # two more seeds of the shape on which an int16 build once went wrong
+    # at K = 14 (ROADMAP §C; the failing input, seed 106, is the case
+    # `shared L=448 gapO=3 gapE=1 quirk=False word=False` above): the
+    # production int16 base mode, pinned
+    from ssw_tpu_torch.tools import i16_fault
+    for seed in (1106, 2106):
+        args = i16_fault.failing_input(dev, seed)
+        got = cuda_sw.forward_shared(*args, 3, 1, False, max_sub=2)
+        want = scan_sw.forward_shared_ref(*args, 3, 1, False)
+        torch.cuda.synchronize()
+        err = max_abs_diff(torch, got, want)
+        worst["forward_shared_i16"] = max(worst["forward_shared_i16"], err)
+        log(f"  K=14 int16 pin seed {seed} B=43 L=448 R=778: "
+            f"max_abs_err {err}")
+        check(err == 0, f"the int16 kernel at K = 14 is wrong again on "
+              f"seed {seed} (ROADMAP §C): max_abs_err {err}")
     # main-path shape: 256 sampled 100 bp reads vs the first 32768 columns
     # of 1M.fa
     seq = load_genome()
@@ -662,7 +673,7 @@ def phase_owned(torch, dev, worst):
     quirk, each gated (the card's tiers) and ungated; exact outputs, and a
     gated launch's depth histogram equal to the plain model's."""
     from ssw_tpu_torch.core.encoding import BLOSUM50
-    from ssw_tpu_torch.ops import common, cuda_sw, gate, scan_sw
+    from ssw_tpu_torch.ops import cuda_sw, gate, scan_sw
 
     cases = []  # label, L, B, R, mat, gapO, gapE, quirk, layout
     for i, L in enumerate((64, 128, 192, 256, 320, 384, 448, 512, 1088)):
@@ -676,7 +687,7 @@ def phase_owned(torch, dev, worst):
               ("K=8 m1x3o5e2 shard", 256, 19, 700, dna_mat(1, 3), 5, 2,
                False, "shard")]
     for i, (label, L, B, R, mat, gO, gE, quirk, layout) in enumerate(cases):
-        args, _, _ = make_shared(torch, common, dev, B=B, L=L, R=R, mat=mat,
+        args, _, _ = make_shared(dev, B=B, L=L, R=R, mat=mat,
                                  word=False, seed=900 + i)
         idx, own = owned_columns(np.random.default_rng(950 + i), layout, R)
         t = lambda a: torch.as_tensor(a).to(dev)
@@ -709,6 +720,59 @@ def phase_owned(torch, dev, worst):
                     + f": max_abs_err {err}")
                 check(err == 0, f"owned {label} {name}: kernel != plain "
                       f"(max_abs_err {err})")
+
+
+# ------------------------------------------------------------------ phase 3l
+
+def lab_inputs(torch, dev):
+    """The lab's phase-3l inputs: the JAX lab's (every lane valid) at K 4
+    and 8, the last at the entry point's B 128, L 256 over 2,048 columns,
+    and ragged DNA reads (make_shared) at K 2, 4 and 16; every target
+    longer than one 256-column block."""
+    from ssw_tpu_torch.tools import kernel_lab
+
+    rng = np.random.default_rng(41)
+    sets = [(f"jax B={b} L={l} R={256 * nb}",
+             kernel_lab.from_jax(*kernel_lab.jax_inputs(rng, b, l, nb), dev))
+            for b, l, nb in ((37, 128, 2), (16, 256, 2),
+                             (kernel_lab.B, kernel_lab.L, 8))]
+    for b, l, r, seed in ((11, 64, 300, 401), (37, 128, 333, 402),
+                          (9, 512, 290, 403)):
+        args, _, _ = make_shared(dev, B=b, L=l, R=r,
+                                 mat=dna_mat(2, 2), word=False, seed=seed)
+        sets.append((f"reads B={b} L={l} R={r}", args))
+    return sets
+
+
+def phase_tools(torch, dev):
+    """Phase 3l: every tool kernel against its plain twin, and every lab
+    variant against its plain twin and its kernel-run comparison (full,
+    the production kernel), tolerance 0; gatescan's depth histogram count
+    for count.  Returns the worst error per tool kernel."""
+    from ssw_tpu_torch.tools import kernel_lab, probe_i16, probe_swar
+
+    worst = {"probe_swar": 0, "probe_i16": 0, "sw_lab": 0}
+    probe_swar.check_exact(np.random.default_rng(0), dev)
+    errs = probe_swar.exactness(dev)
+    log(f"  probe_swar chains at ({probe_swar.B}, {probe_swar.L}) x "
+        f"{probe_swar.DEPTH}, bench inputs: max_abs_err {errs}")
+    check(not any(errs.values()), f"probe_swar chains: {errs}")
+    for name in probe_i16.PROBES:
+        err = probe_i16.check(name, dev)
+        log(f"  probe_i16 {name}: max_abs_err {err}")
+        check(err == 0, f"probe_i16 {name}: kernel != plain ({err})")
+    for label, args in lab_inputs(torch, dev):
+        gate = kernel_lab.card_gate(args)
+        for v in kernel_lab.VARIANTS:
+            if v == "skeleton":  # timed only: no comparison
+                continue
+            for m in (range(5) if v == "shortscan" else (None,)):
+                err = kernel_lab.verify(v, args, m=m, gate=gate)
+                worst["sw_lab"] = max(worst["sw_lab"], err)
+                log(f"  sw_lab {v}{'' if m is None else f'!{m}'} {label}: "
+                    f"max_abs_err {err}")
+                check(err == 0, f"sw_lab {v} {label}: max_abs_err {err}")
+    return worst
 
 
 # ------------------------------------------------------------------- phase 4
@@ -1938,6 +2002,170 @@ def phase_timing(torch, dev, rec, worst, launches, gated_launches, clock_mhz,
     return rows
 
 
+# ------------------------------------------------------------------- phase 7
+
+def phase_tools_path():
+    """Phase 7's run of the slice's path: the three tools' entry points as
+    a user calls them (the lab at the JAX lab's default shape, every
+    variant), with their launch counts from 0; each tool kernel must have
+    launched.  Returns the counts."""
+    from ssw_tpu_torch.tools import _common, kernel_lab, probe_i16, \
+        probe_swar
+
+    _common.reset_launches()
+    log("  python -m ssw_tpu_torch.tools.probe_swar")
+    probe_swar.main([])
+    log("  python -m ssw_tpu_torch.tools.probe_i16")
+    probe_i16.main([])
+    log("  python -m ssw_tpu_torch.tools.kernel_lab "
+        + " ".join(kernel_lab.ALL_LABELS))
+    kernel_lab.main(list(kernel_lab.ALL_LABELS))
+    launches = dict(_common.LAUNCHES)
+    log(f"  tool launches (phase 7 path): {json.dumps(launches)}")
+    for name, n in launches.items():
+        check(n > 0, f"{name} was not launched by its tool")
+    return launches
+
+
+def phase_tools_timing(torch, dev, rec, worst, launches, int32_rate,
+                       slice_cols):
+    """Phase 7's measurements: each tool kernel's row of the kernels line,
+    and the lab's table in turns on the config-4 int32 leaf (phase 6's)."""
+    from ssw_tpu_torch.ops import cuda_sw, scan_sw
+    from ssw_tpu_torch.tools import kernel_lab, probe_i16, probe_swar
+
+    def bound(ops, nbytes):
+        t_ops = ops / int32_rate * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes,
+                                                               "bytes")
+
+    rows = []
+    # probe_swar: each form's chain at the JAX shape, beside its plain twin
+    x, y = probe_swar.inputs()
+    xt, yt = torch.as_tensor(x).to(dev), torch.as_tensor(y).to(dev)
+    n, depth = x.size, probe_swar.DEPTH
+    ops_per_step = {"native": 2, "swar": 9, "vmaxs2": 2,
+                    "viaddmax_s16x2": 2, "viaddmax_s32": 2}
+    sass = probe_swar.sass_report()
+    forms = {}
+    for which in probe_swar.FORMS:
+        fn = lambda: probe_swar.run(xt, yt, which)
+        ms = time_ms(torch, fn, 50)
+        t0 = time.perf_counter()
+        probe_swar.chain_ref(xt, yt, which)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        b_ms, b_by = bound(ops_per_step[which] * n * depth, 12 * n)
+        forms[which] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                        "bound_by": b_by, **probe_swar.bench(which, dev),
+                        "sass_max_per_step": sass[which]["max_instructions"]
+                        / sass[which]["steps"]}
+        log(f"  probe_swar {which}: {json.dumps(forms[which])}")
+    nat = forms["native"]
+    rows.append({
+        "name": "probe_swar", "route": "cuda",
+        "source": "ssw_tpu_torch/csrc/probe_swar.cu",
+        "replaces": "tools/probe_swar.py:77 (run: _native_kernel :58, "
+                    "_swar_kernel :66)",
+        "launches": launches["probe_swar"],
+        "max_abs_err": worst["probe_swar"], "ms": nat["ms"],
+        "plain_ms": nat["plain_ms"], "bound_ms": nat["bound_ms"],
+        "bound_by": nat["bound_by"], "library_ms": None,
+        "shape": f"({probe_swar.B}, {probe_swar.L}) int32 x {depth} steps, "
+                 f"native form; every form in 'forms'",
+        "forms": forms})
+    # probe_i16: every probe at the JAX shape, beside its plain twin
+    probes = {}
+    for name in probe_i16.PROBES:
+        xs = [x.to(dev) for x in probe_i16.random_inputs(name, 0)]
+        ms = time_ms(torch, lambda: probe_i16.run(name, xs), 50)
+        fn = probe_i16.PROBES[name][0]
+        t0 = time.perf_counter()
+        fn(*xs)
+        torch.cuda.synchronize()
+        probes[name] = {"ms": ms,
+                        "plain_ms": (time.perf_counter() - t0) * 1e3}
+    xs = probe_i16.random_inputs("full_step", 0)
+    nbytes = sum(x.numel() * 2 for x in xs) + xs[0].numel() * 2
+    # full_step: 13 packed ops per lane pair, 5 scan steps per thread
+    b_ms, b_by = bound(13 * xs[0].numel() // 2, nbytes)
+    fs = probes["full_step"]
+    rows.append({
+        "name": "probe_i16", "route": "cuda",
+        "source": "ssw_tpu_torch/csrc/probe_i16.cu",
+        "replaces": "tools/probe_i16.py:32 (_run over the @probe registry "
+                    ":37-143)",
+        "launches": launches["probe_i16"],
+        "max_abs_err": worst["probe_i16"], "ms": fs["ms"],
+        "plain_ms": fs["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None,
+        "shape": "(8, 128) int16, full_step; every probe in 'probes'",
+        "probes": probes})
+    # the lab on the config-4 int32 leaf (phase 6's): its slice in turns
+    got = [(size, a) for (name, tag), (size, a, _) in rec.items()
+           if name == "forward_shared_i16" and tag == "5"]
+    check(got, "no config-4 leaf call of forward_shared_i16 in phase 5")
+    prof, ref, rl, cm, seg, ss, gapO, gapE, quirk = max(
+        got, key=lambda g: g[0])[1]
+    check(not quirk and (gapO, gapE) == (3, 1), "config-4 leaf: quirk off, "
+          "gapO 3, gapE 1 expected")
+    R = int(ref.numel())
+    lo = mid_slice(R, None, slice_cols)
+    leaf = (prof, ref, rl, cm, seg, ss)
+    sl = (prof, ref[lo:lo + slice_cols].contiguous(), rl, cm, seg, ss)
+    table = []
+    for label in kernel_lab.ALL_LABELS:
+        r = kernel_lab.time_label(label, sl, reps=5)
+        twinned = not label.startswith("skeleton")
+        check(r["max_abs_err"] == 0 if twinned else r["max_abs_err"] is None,
+              f"sw_lab {label} on the config-4 slice, against its plain "
+              f"twin and kernel-run comparisons: max_abs_err "
+              f"{r['max_abs_err']}")
+        worst["sw_lab"] = max(worst["sw_lab"], r["max_abs_err"] or 0)
+        log("  lab " + kernel_lab.format_row(r))
+        table.append(r)
+    lab_ms, prod_ms = in_turns(
+        torch, lambda: kernel_lab.run("full", leaf),
+        lambda: cuda_sw.forward_shared(*leaf, gapO, gapE, quirk), 1)
+    log(f"  lab full vs forward_shared on the whole config-4 leaf "
+        f"(B={prof.shape[0]} L={prof.shape[2]} R={R}), in turns: "
+        f"{lab_ms:.2f} vs {prod_ms:.2f} ms ({(lab_ms / prod_ms - 1) * 100:+.2f} %)")
+    check(abs(lab_ms / prod_ms - 1) <= 0.03, "the lab's full is more than "
+          "3 % off the production kernel on the config-4 leaf")
+    t0 = time.perf_counter()
+    want = scan_sw.forward_shared_ref(*sl, gapO, gapE, False)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    got = kernel_lab.run("full", sl)
+    check(max_abs_diff(torch, [got[k] for k in ("score", "end_ref",
+                                                "end_read", "maxcol")],
+                       want) == 0, "sw_lab full != plain on the slice")
+    B, L = prof.shape[0], prof.shape[2]
+    cells = int(cm.sum())
+    io = prof.numel() + 3 * cm.numel() + 4 * B + 12 * B
+    full = table[0]
+    b_ms, b_by = bound(cuda_sw.OPS_PER_CELL * cells * slice_cols,
+                       io + 4 * slice_cols + 2 * B * slice_cols)
+    rows.append({
+        "name": "sw_lab", "route": "cuda",
+        "source": "ssw_tpu_torch/csrc/sw_lab.cu",
+        "replaces": "tools/kernel_lab.py:73 (make_kernel; pallas_call in "
+                    "run :463)",
+        "launches": launches["sw_lab"], "max_abs_err": worst["sw_lab"],
+        "ms": full["ms"], "plain_ms": plain_ms, "bound_ms": b_ms,
+        "bound_by": b_by, "library_ms": None,
+        "shape": f"variant full, B={B} L={L} R={slice_cols} (column slice "
+                 f"of the config-4 int32 leaf)",
+        "leaf_ms": lab_ms, "leaf_production_ms": prod_ms,
+        "leaf_bound_ms": bound(cuda_sw.OPS_PER_CELL * cells * R,
+                               io + 4 * R + 2 * B * R)[0],
+        "leaf_shape": f"B={B} L={L} R={R}",
+        "table": [{k: r[k] for k in ("label", "ms", "full_ms", "delta_pct",
+                                     "registers")} for r in table]})
+    return rows
+
+
 # ---------------------------------------------------------------------- main
 
 def main() -> int:
@@ -1969,7 +2197,7 @@ def main() -> int:
             f"{clock} MHz")
         # phase 2
         t0 = time.perf_counter()
-        secs = _kernels.build(_kernels.KERNELS)
+        secs = _kernels.build(_kernels.KERNELS + _kernels.TOOL_KERNELS)
         for name in _kernels.KERNELS:
             for line in _kernels.build_log.get(name, "").splitlines():
                 if "registers" in line or "spill" in line:
@@ -1986,6 +2214,10 @@ def main() -> int:
         phase_gate(torch, dev, worst)
         phase_owned(torch, dev, worst)
         log(f"phase 3 done in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        log("phase 3l tool kernels vs plain twins (exact):")
+        worst_tools = phase_tools(torch, dev)
+        log(f"phase 3l done in {time.perf_counter() - t0:.1f} s")
         if "--kernels-only" in sys.argv[1:]:
             log("stopped after phase 3 (--kernels-only): no result")
             return 2
@@ -2071,6 +2303,15 @@ def main() -> int:
         kernels = phase_timing(torch, dev, rec, worst, launches, gated,
                                float(clock or 1980), SLICE_COLS)
         log(f"phase 6 done in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        log("phase 7 the tools' entry points, then their timing:")
+        tool_launches = phase_tools_path()
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        kernels += phase_tools_timing(
+            torch, dev, rec, worst_tools, tool_launches,
+            INT32_LANES_PER_SM * sms * float(clock or 1980) * 1e6,
+            SLICE_COLS)
+        log(f"phase 7 done in {time.perf_counter() - t0:.1f} s")
         log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
     except SmokeFailure as e:
         log(f"FAIL: {e}")

@@ -3,8 +3,11 @@
 Each `csrc/<name>.cu` compiles with nvcc into its own shared library with a
 plain C interface (`build/lib<name>.so`), loaded with ctypes: pointers pass
 as c_void_p, the stream as PyTorch's current raw stream.  Builds happen at
-first use, all sources at once (one nvcc process each), and are reused
-while no source is newer than its library.  A failed build raises with the
+first use, all sources of a group at once (one nvcc process each), and are
+reused while no source is newer than its library.  Two groups: KERNELS,
+the main path's, and TOOL_KERNELS, the measurement tools' of
+ssw_tpu_torch/tools (built at a tool's first use; loading a main-path
+kernel never waits on them).  A failed build raises with the
 compiler's stderr; there is no fallback.  Nothing here runs at import.
 """
 
@@ -23,6 +26,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
 KERNELS = ("sw_forward", "sw_forward_i16", "sw_forward_packed",
            "sw_perread")
+TOOL_KERNELS = ("probe_swar", "probe_i16", "sw_lab")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 _lock = threading.Lock()
@@ -50,6 +54,15 @@ _SIGNATURES = {
     "sw_perread": {
         "sw_forward_perread": [_P] * 7 + [_I] * 7 + [_P] * 6,
         "sw_perread_scratch_per_read": [_I],
+    },
+    "probe_swar": {
+        "probe_swar_chain": [_I] + [_P] * 3 + [_I] * 5 + [_P],
+    },
+    "probe_i16": {
+        "probe_i16_run": [_I] + [_P] * 4 + [_I] * 2 + [_P],
+    },
+    "sw_lab": {
+        "sw_lab_run": [_I] + [_P] * 4 + [_I] * 6 + [_P] * 9,
     },
 }
 
@@ -120,7 +133,7 @@ def load(name: str):
         lib = _libs.get(name)
         if lib is not None:
             return lib
-        build(KERNELS)
+        build(TOOL_KERNELS if name in TOOL_KERNELS else KERNELS)
         lib = ctypes.CDLL(_lib_path(name))
         for fn, argtypes in _SIGNATURES[name].items():
             f = getattr(lib, fn)

@@ -416,3 +416,118 @@ def test_gated_pipeline_on_card_equals_cpu(card, monkeypatch):
     monkeypatch.setattr(pipeline, "GATE", False)
     want = pipeline.align_batch(req, device="cpu")
     assert [vars(a) for a in got] == [vars(b) for b in want]
+
+
+def _owned_cols(dev, R, seed):
+    rng = np.random.default_rng(seed)
+    idx = rng.permutation(4 * R)[:R].astype(np.int32)
+    own = rng.random(R) < 0.5
+    return torch.as_tensor(idx).to(dev), torch.as_tensor(own).to(dev)
+
+
+@pytest.mark.parametrize("L", [128, 448])
+@pytest.mark.parametrize("i16", [False, True])
+@pytest.mark.parametrize("gated", [False, True])
+def test_forward_shared_owned_kernel_equals_plain(card, L, i16, gated):
+    """The owned-column mode (cuda_sw.forward_shared_gated) at K = 4 and
+    K = 14, int32 and the int16 tier, ungated and with the card's gate
+    tiers, against scan_sw.forward_shared_ref_gated, the depth histogram
+    count for count."""
+    from ssw_tpu_torch.ops import gate
+
+    B, R = 23, 800
+    args = _inputs(card, B, L, R, dna_matrix(2, 2), False, seed=L + i16)
+    idx, own = _owned_cols(card, R, seed=L)
+    thr = gate.card_thresholds(L // 32, L, 3, 1, 2) if gated else None
+    name = cuda_sw.owned_kernel_name(i16)
+    before = cuda_sw.launch_counts()[name]
+    cuda_sw.reset_gate_steps()
+    got = cuda_sw.forward_shared_gated(*args[:2], idx, own, *args[2:], 3, 1,
+                                       False, max_sub=2 if i16 else None,
+                                       gate=thr)
+    hist = cuda_sw.gate_steps()
+    assert cuda_sw.launch_counts()[name] == before + 1
+    want = scan_sw.forward_shared_ref_gated(*args[:2], idx, own, *args[2:],
+                                            3, 1, False, gate=thr, pairs=i16,
+                                            steps=gated)
+    if gated:
+        want, want_hist = want
+        assert hist == want_hist.tolist()
+    _equal(got, want)
+
+
+def test_sharded_pipeline_on_card_equals_cpu(card):
+    """pipeline.align_batch_sharded over a 1 x 2 mesh of [cuda:0] * 2 (the
+    seq shards one after another on the card) against align_batch on the
+    CPU."""
+    from ssw_tpu_torch.parallel import mesh as mesh_lib
+
+    rng = np.random.default_rng(12)
+    ref = rng.integers(0, 4, 4000).astype(np.int8)
+    reads = []
+    for _ in range(60):
+        ln = int(rng.integers(30, 200))
+        s = int(rng.integers(0, 4000 - ln))
+        r = ref[s:s + ln].copy()
+        m = rng.random(ln) < 0.05
+        r[m] = rng.integers(0, 4, int(m.sum()))
+        reads.append(r)
+    req = pipeline.BatchRequest(reads=reads, ref=ref, mat=dna_matrix(2, 2),
+                                gapO=3, gapE=1,
+                                mask_len=[max(len(r) // 2, 15)
+                                          for r in reads])
+    m = mesh_lib.make_mesh(data=1, seq=2, devices=[card] * 2)
+    cuda_sw.reset_launches()
+    got = pipeline.align_batch_sharded(req, m)
+    counts = cuda_sw.launch_counts()
+    assert counts["forward_shared_i16_owned"] + \
+        counts["forward_shared_owned"] >= 2
+    want = pipeline.align_batch(req, device="cpu")
+    assert [vars(a) for a in got] == [vars(b) for b in want]
+
+
+def test_i16_k14_fault_input_pinned(card):
+    """The input on which the int16 kernel at K = 14 once went wrong
+    (ROADMAP §C: chip_smoke.py phase 3, seed 106, B 43, L 448, R 778): the
+    production int16 base mode equals the plain twin."""
+    from ssw_tpu_torch.tools import i16_fault
+
+    args = i16_fault.failing_input(card)
+    before = cuda_sw.launch_counts()["forward_shared_i16"]
+    got = cuda_sw.forward_shared(*args, 3, 1, False, max_sub=2)
+    assert cuda_sw.launch_counts()["forward_shared_i16"] == before + 1
+    _equal(got, scan_sw.forward_shared_ref(*args, 3, 1, False))
+
+
+def test_probe_swar_kernel_equals_plain(card):
+    from ssw_tpu_torch.tools import _common, probe_swar
+
+    before = _common.LAUNCHES["probe_swar"]
+    probe_swar.check_exact(np.random.default_rng(0), card)
+    errs = probe_swar.exactness(card)
+    assert not any(errs.values()), errs
+    assert _common.LAUNCHES["probe_swar"] > before
+
+
+def test_probe_i16_kernels_equal_plain(card):
+    from ssw_tpu_torch.tools import probe_i16
+
+    for name in probe_i16.PROBES:
+        assert probe_i16.check(name, card) == 0, name
+
+
+@pytest.mark.parametrize("L,B,R", [(128, 37, 333), (256, 16, 512)])
+def test_lab_variants_equal_their_comparisons(card, L, B, R):
+    """Every kernel_lab variant with a comparison against its plain twin
+    and its kernel-run comparison (full, the production kernel), the
+    gatescan histogram count for count; tolerance 0."""
+    from ssw_tpu_torch.tools import _common, kernel_lab
+
+    args = _inputs(card, B, L, R, dna_matrix(2, 2), False, seed=R)
+    gate = kernel_lab.card_gate(args)
+    before = _common.LAUNCHES["sw_lab"]
+    for v in kernel_lab.VARIANTS:
+        for m in (range(5) if v == "shortscan" else (None,)):
+            err = kernel_lab.verify(v, args, m=m, gate=gate)
+            assert err == (None if v == "skeleton" else 0), (v, m, err)
+    assert _common.LAUNCHES["sw_lab"] > before

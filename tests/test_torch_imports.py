@@ -36,7 +36,11 @@ def test_no_module_imports_jax_or_ssw_tpu():
     assert {"ssw_tpu_torch.pipeline", "ssw_tpu_torch.cli",
             "ssw_tpu_torch.dcli", "ssw_tpu_torch.parallel.mesh",
             "ssw_tpu_torch.parallel.dist",
-            "ssw_tpu_torch.parallel.multihost"} <= set(mods)
+            "ssw_tpu_torch.parallel.multihost",
+            "ssw_tpu_torch.tools.probe_swar", "ssw_tpu_torch.tools.probe_i16",
+            "ssw_tpu_torch.tools.kernel_lab",
+            "ssw_tpu_torch.tools.i16_fault",
+            "ssw_tpu_torch.tools.sass_diff"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
