@@ -21,7 +21,12 @@ Phases (any failure exits non-zero before the final line):
      to 34, the card's tiers and the JAX plan's, against the gated plain
      model and the ungated launch, depth histograms count for count; the
      owned-column mode of both forward kernels (phase_owned: random and
-     shard idx/own, K 2 to 16 and 34, odd B, the quirk, gated and not)
+     shard idx/own, K 2 to 16 and 34, odd B, the quirk, gated and not);
+     every ungated int16-tier and packed case runs the anti-diagonal
+     wavefront (sw_wave_i16, sw_wave_packed) and is also held equal to the
+     column-scan body of the same mode (sw_forward_i16, sw_forward_packed,
+     scan_body=True), the K = 14 int16 fault input and two more seeds of
+     its shape included; the gated cases stay on the column-scan bodies
   4. the ssw_test main path (ssw_tpu_torch.cli.main) on the card, byte-equal
      to the reference-binary captures in tests/golden (configs 1-3), then
      every golden again with the streaming suboptimal scan forced, and with
@@ -53,7 +58,8 @@ Phases (any failure exits non-zero before the final line):
      the re-run route, byte-equal.
   5d. the same reads and genome with the README's second penalty set,
      -m 1 -x 3 -o 5 -e 2 -c -s -h (the JAX package's gate_plan turns its
-     gate on there), in turns: GATE = None, False, True, None, byte-equal.
+     gate on there; the card's rule gates no packed or int16 launch), in
+     turns: GATE = None, False, True, None, byte-equal.
   5e. BASELINE config 5 on one card: phase 5b's target and its first 2048
      reads, -c -s -h -r, through dcli align --batch-size 1024 --mesh-seq 4
      over [card] x 4 (the sequence-parallel path: halo re-compute, best-hit
@@ -63,9 +69,15 @@ Phases (any failure exits non-zero before the final line):
      (--coordinator), BASELINE config 3, merged: equal to its capture.
      Launch counts are set to 0 before phase 4 and read after phase 5f:
      these are the main path, and each kernel must have run in it, each
-     forward kernel with the gate too.
+     forward kernel with the gate too; the counts by library must show
+     every ungated int16-tier and packed launch in the wavefront libraries
+     and every gated one in the column-scan libraries.
   6. kernel timing at the largest shapes phases 4-5d gave each kernel,
-     beside the plain version and the integer-ALU bound, packed leaves
+     beside the plain version and the integer-ALU bound, the wavefront
+     kernels in turns against the column-scan body of the same library on
+     the same inputs (the config-4 int16 base and blockmax leaves, the Ion
+     int16 dual leaf, the config-4 packed leaf, the Ion L = 192 packed
+     dual leaf, the largest config-5 owned shard), packed leaves
      beside unpacked leaves of the same reads in turns, each gated
      kernel family beside its ungated launch in turns, and the owned
      kernels beside their base mode on the same inputs in turns (the
@@ -192,6 +204,18 @@ def max_abs_diff(torch, got, want):
     return err
 
 
+def same_as_scan_body(label, got, scan):
+    """A wavefront launch's outputs against the column-scan body of the
+    same library and mode on the same inputs (scan() launches it)."""
+    import torch
+    want = scan()
+    torch.cuda.synchronize()
+    err = max_abs_diff(torch, got, want)
+    log(f"  {label}: wavefront vs column-scan body: max_abs_err {err}")
+    check(err == 0, f"{label}: the wavefront differs from the column-scan "
+          f"body (max_abs_err {err})")
+
+
 # ------------------------------------------------------------------- phase 3
 
 def phase_kernels(torch, dev):
@@ -252,6 +276,12 @@ def phase_kernels(torch, dev):
                     + f": max_abs_err {err}")
                 check(err == 0, f"{label} {name}: kernel != plain "
                       f"(max_abs_err {err})")
+                if ms is not None:
+                    same_as_scan_body(
+                        f"{label} {name}", g, lambda: cuda_sw.forward_shared(
+                            *args, gO, gE, quirk, max_sub=ms, blockmax=bm,
+                            valid_len=valid_len if bm else None,
+                            scan_body=True))
             check(max_abs_diff(torch, got_bm[:3], got[:3]) == 0,
                   f"{label}: blockmax score/ends differ from the base "
                   f"mode's")
@@ -303,6 +333,9 @@ def phase_kernels(torch, dev):
             f"max_abs_err {err}")
         check(err == 0, f"the int16 kernel at K = 14 is wrong again on "
               f"seed {seed} (ROADMAP §C): max_abs_err {err}")
+        same_as_scan_body(f"K=14 int16 pin seed {seed}", got,
+                          lambda: cuda_sw.forward_shared(
+                              *args, 3, 1, False, max_sub=2, scan_body=True))
     # main-path shape: 256 sampled 100 bp reads vs the first 32768 columns
     # of 1M.fa
     seq = load_genome()
@@ -430,6 +463,10 @@ def phase_packed(torch, dev, worst):
                 f"dual={dual}: max_abs_err {err}")
             check(err == 0, f"packed {label} dual={dual}: kernel != plain "
                   f"(max_abs_err {err})")
+            same_as_scan_body(
+                f"packed {label} dual={dual}", got,
+                lambda: cuda_sw.forward_shared_packed(*pa, gO, gE,
+                                                      scan_body=True, **kw))
             # the unpacked blockmax kernel (int32) on the same reads
             if dual:
                 byte = cuda_sw.forward_shared(*ua[:3], cm_byte, *ua[4:], gO,
@@ -457,6 +494,13 @@ def phase_packed(torch, dev, worst):
                     torch.cuda.synchronize()
                     dname = cuda_sw.shared_kernel_name(tier is not None,
                                                        True, True)
+                    if tier is not None:
+                        same_as_scan_body(
+                            f"{dname} {label}", ud,
+                            lambda: cuda_sw.forward_shared(
+                                *ua[:3], cm_byte, *ua[4:], gO, gE, False,
+                                max_sub=tier, blockmax=True, valid_len=vl,
+                                wmask=cm_word, scan_body=True))
                     derr = max_abs_diff(torch, ud, uw)
                     worst[dname] = max(worst[dname], derr)
                     log(f"  {dname} {label}: max_abs_err {derr}, equal to "
@@ -720,6 +764,12 @@ def phase_owned(torch, dev, worst):
                     + f": max_abs_err {err}")
                 check(err == 0, f"owned {label} {name}: kernel != plain "
                       f"(max_abs_err {err})")
+                if tier is not None and g is None:
+                    same_as_scan_body(
+                        f"owned {label} {name}", got,
+                        lambda: cuda_sw.forward_shared_gated(
+                            *args[:2], *cols, *args[2:], gO, gE, quirk,
+                            max_sub=tier, scan_body=True))
 
 
 # ------------------------------------------------------------------ phase 3l
@@ -986,6 +1036,7 @@ def run_sam(torch, dev, target, fq, label, card, truth=None,
     torch.cuda.reset_peak_memory_stats(dev)
     before = cuda_sw.launch_counts()
     gated_before = cuda_sw.gated_counts()
+    libs_before = cuda_sw.library_counts()
     cuda_sw.reset_gate_steps()
     t0 = time.perf_counter()
     with pipeline.profiled(counter):
@@ -997,6 +1048,9 @@ def run_sam(torch, dev, target, fq, label, card, truth=None,
                 if n != before[k]}
     gated = {k: n - gated_before[k] for k, n in cuda_sw.gated_counts().items()
              if n != gated_before[k]}
+    libraries = {k: n - libs_before[k]
+                 for k, n in cuda_sw.library_counts().items()
+                 if n != libs_before[k]}
     check(rc == 0, f"{label}: cli rc {rc}: {err[-2000:]}")
     hits = total = 0
     for line in out.splitlines():
@@ -1013,7 +1067,7 @@ def run_sam(torch, dev, target, fq, label, card, truth=None,
         "gcups_forward_phase": counter.cells / fwd_s / 1e9 if fwd_s else 0.0,
         "gcups_wall": counter.cells / wall / 1e9,
         "phase_seconds": counter.seconds, "peak_device_bytes": peak,
-        "launches": launches, "gated": gated,
+        "launches": launches, "gated": gated, "libraries": libraries,
         "gate_steps_by_depth": cuda_sw.gate_steps(),
     }
     if truth is not None:
@@ -1273,9 +1327,10 @@ def phase_iontorrent_o5e2(torch, dev, card, ion):
     """The reference README's second configuration of the Ion Torrent
     headline: the same reads and genome with -m 1 -x 3 -o 5 -e 2 -c -s -h,
     the only full-size run where the JAX package's gate_plan turns the gate
-    on.  In turns: the card's rule (GATE = None), no gate, the JAX plan
-    (GATE = True), the card's rule again; byte-equal SAMs, >= 95 % of
-    reads at the sampled position."""
+    on.  In turns: the card's rule (GATE = None: no gate on its packed and
+    int16 launches, which run the wavefront), no gate, the JAX plan (GATE =
+    True: the column-scan bodies, gated), the card's rule again; byte-equal
+    SAMs, >= 95 % of reads at the sampled position."""
     from ssw_tpu_torch import pipeline
 
     target, fq, truth = ion
@@ -1293,8 +1348,12 @@ def phase_iontorrent_o5e2(torch, dev, card, ion):
         finally:
             pipeline.GATE = None
         check_gated(f"Ion Torrent o5e2 {label}", gt, r)
-        check(gt is False or r["gated"], f"Ion Torrent o5e2 {label}: the "
+        check(gt is not True or r["gated"], f"Ion Torrent o5e2 {label}: the "
               f"gate did not run")
+        check(gt is not None or not any("_i16" in k or "_packed" in k
+                                        for k in r["gated"]),
+              f"Ion Torrent o5e2 {label}: the card's rule gated a packed or "
+              f"int16 launch: {r['gated']}")
         outs.append(out)
         res.setdefault(label, []).append(r)
     check(all(o == outs[0] for o in outs), "Ion Torrent o5e2: the SAMs of "
@@ -1570,11 +1629,13 @@ def phase_timing(torch, dev, rec, worst, launches, gated_launches, clock_mhz,
             in_bytes += wmask.numel()
         return bound(ops, in_bytes + out_bytes + 12 * B)
 
-    def shared_row(name, source, replaces, tag=None):
+    def shared_row(name, source, replaces, tag=None, leaf_turns=True):
         """forward_shared's kernel `name` at its largest main-path call (or
         its largest in phase `tag`); the plain version and the bound on a
         column slice of the same inputs when the call is too long for the
-        plain version."""
+        plain version.  The int16 tier (the wavefront) is timed in turns
+        with the column-scan body of the same mode on the slice and, with
+        leaf_turns, on the whole leaf."""
         args, kw, t = call(name, tag)
         prof, ref, rl, cm, seg, ss, gapO, gapE, quirk = args
         B, n1, L = prof.shape
@@ -1584,7 +1645,13 @@ def phase_timing(torch, dev, rec, worst, launches, gated_launches, clock_mhz,
         sl = (prof, ref[lo:lo + cols].contiguous(), rl, cm, seg, ss, gapO,
               gapE, quirk)
         plain_kw = {k: v for k, v in kw.items() if k != "max_sub"}
-        ms = time_ms(torch, lambda: cuda_sw.forward_shared(*sl, **kw), 5)
+        fk = lambda a, **k: cuda_sw.forward_shared(*a, **kw, **k)
+        wave = "_i16" in name
+        if wave:
+            ms, scan_ms = in_turns(torch, lambda: fk(sl),
+                                   lambda: fk(sl, scan_body=True), 5)
+        else:
+            ms = time_ms(torch, lambda: fk(sl), 5)
         t0 = time.perf_counter()
         want = scan_sw.forward_shared_ref(*sl, **plain_kw)
         torch.cuda.synchronize()
@@ -1604,10 +1671,14 @@ def phase_timing(torch, dev, rec, worst, launches, gated_launches, clock_mhz,
             "shape": f"B={B} L={L} R={cols} quirk={bool(quirk)} phase {t}"
                      + (" (column slice of the leaf)" if cols < R else ""),
         }
-        if cols < R:
+        if wave:
+            row["scan_body_ms"] = scan_ms
+        if cols < R and wave and leaf_turns:
+            row["leaf_ms"], row["scan_body_leaf_ms"] = in_turns(
+                torch, lambda: fk(args), lambda: fk(args, scan_body=True), 1)
+        elif cols < R:
             reps = 1 if B * R > (1 << 32) else 3
-            row["leaf_ms"] = time_ms(
-                torch, lambda: cuda_sw.forward_shared(*args, **kw), reps)
+            row["leaf_ms"] = time_ms(torch, lambda: fk(args), reps)
             row["leaf_bound_ms"] = shared_bound(name, prof, cm, R, quirk,
                                                 wm)[0]
             row["leaf_shape"] = f"B={B} L={L} R={R}"
@@ -1632,7 +1703,7 @@ def phase_timing(torch, dev, rec, worst, launches, gated_launches, clock_mhz,
         "pallas_call at :557)")
     rows.append(row)
     row, c4, c4kw = shared_row(
-        "forward_shared_i16", "ssw_tpu_torch/csrc/sw_forward_i16.cu",
+        "forward_shared_i16", "ssw_tpu_torch/csrc/sw_wave_i16.cu",
         "ssw_tpu/ops/pallas_sw.py:109 (_forward_kernel, int16 tier: use_i16 "
         "chosen at :735, pallas_call at :557; probe _i16_supported :576)",
         tag="5")
@@ -1671,21 +1742,27 @@ def phase_timing(torch, dev, rec, worst, launches, gated_launches, clock_mhz,
     # blockmax mode, int16 tier: the 10 Mbp leaf (slice + whole leaf), and
     # the config-4 streaming leaf beside the base mode, in turns
     row, _, _ = shared_row(
-        "forward_shared_i16_blockmax", "ssw_tpu_torch/csrc/sw_forward_i16.cu",
+        "forward_shared_i16_blockmax", "ssw_tpu_torch/csrc/sw_wave_i16.cu",
         "ssw_tpu/ops/pallas_sw.py:109 (_forward_kernel, blockmax/lanetrack "
         "mode, int16 tier (rv, rc) :290-297; pallas_call at :557; wrapper "
-        "forward_shared_ref :702 with blockmax=True)")
+        "forward_shared_ref :702 with blockmax=True)", leaf_turns=False)
     base_kw = {k: v for k, v in s4kw.items() if k == "max_sub"}
     base_vs_blockmax(row, "forward_shared_i16_blockmax", s4,
                      lambda: cuda_sw.forward_shared(*s4, **base_kw),
                      lambda: cuda_sw.forward_shared(*s4, **s4kw))
+    # the config-4 streaming leaf: the wavefront against the column-scan
+    # body of the blockmax mode, in turns
+    (row["config4_leaf"]["blockmax_ms"],
+     row["config4_leaf"]["scan_body_blockmax_ms"]) = in_turns(
+        torch, lambda: cuda_sw.forward_shared(*s4, **s4kw),
+        lambda: cuda_sw.forward_shared(*s4, **s4kw, scan_body=True), 1)
     rows.append(row)
 
     # dual mode, both tiers: the largest main-path call (the Ion Torrent
     # leaves), and beside it the blockmax mode on the same inputs, in turns
     fs = lambda *a, **k: cuda_sw.forward_shared(*a, **k)
     for name, source, tier in (
-            ("forward_shared_i16_dual", "ssw_tpu_torch/csrc/sw_forward_i16.cu",
+            ("forward_shared_i16_dual", "ssw_tpu_torch/csrc/sw_wave_i16.cu",
              "int16 tier"),
             ("forward_shared_dual", "ssw_tpu_torch/csrc/sw_forward.cu",
              "int32")):
@@ -1733,8 +1810,9 @@ def phase_timing(torch, dev, rec, worst, launches, gated_launches, clock_mhz,
         lo = mid_slice(R, kw.get("valid_len"), cols)
         sl_args = (prof, ref[lo:lo + cols].contiguous(), *args[2:])
         plain_kw = {k: v for k, v in kw.items() if k != "slot_max"}
-        ms = time_ms(torch, lambda: cuda_sw.forward_shared_packed(
-            *sl_args, **kw), 5)
+        fp = lambda a, **k: cuda_sw.forward_shared_packed(*a, **kw, **k)
+        ms, scan_ms = in_turns(torch, lambda: fp(sl_args),
+                               lambda: fp(sl_args, scan_body=True), 5)
         t0 = time.perf_counter()
         want = scan_sw.forward_shared_ref_packed(*sl_args, **plain_kw)
         torch.cuda.synchronize()
@@ -1747,7 +1825,7 @@ def phase_timing(torch, dev, rec, worst, launches, gated_launches, clock_mhz,
         S = int(args[2].shape[1])
         row = {
             "name": name, "route": "cuda",
-            "source": "ssw_tpu_torch/csrc/sw_forward_packed.cu",
+            "source": "ssw_tpu_torch/csrc/sw_wave_packed.cu",
             "replaces": "ssw_tpu/ops/pallas_sw.py:109 (_forward_kernel, "
                         "packed mode :137-141, :214-248, :381-404"
                         + (", dual :398-404" if kw.get("dual") else "")
@@ -1756,15 +1834,15 @@ def phase_timing(torch, dev, rec, worst, launches, gated_launches, clock_mhz,
             "launches": launches[name],
             "max_abs_err": max(err, worst[name]),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None,
+            "bound_by": b_by, "library_ms": None, "scan_body_ms": scan_ms,
             "shape": f"B={args[5].numel()} rows={prof.shape[0]} "
                      f"W={prof.shape[2]} S={S} R={cols} "
                      f"quirk={bool(kw.get('quirk'))} phase {t}"
                      + (" (column slice of the leaf)" if cols < R else ""),
         }
         if cols < R:
-            row["leaf_ms"] = time_ms(
-                torch, lambda: cuda_sw.forward_shared_packed(*args, **kw), 1)
+            row["leaf_ms"], row["scan_body_leaf_ms"] = in_turns(
+                torch, lambda: fp(args), lambda: fp(args, scan_body=True), 1)
             # the kernel stops at valid_len: the columns this data needs
             row["leaf_bound_ms"] = packed_bound(
                 args, kw, min(R, kw.get("valid_len") or R))[0]
@@ -1880,7 +1958,7 @@ def phase_timing(torch, dev, rec, worst, launches, gated_launches, clock_mhz,
             ("forward_shared_packed", "5j", True, "sw_forward_packed.cu"),
             ("forward_shared_packed_dual", "5c4", True,
              "sw_forward_packed.cu"),
-            ("forward_shared_packed_dual", "5d0", True,
+            ("forward_shared_packed_dual", "5d2", True,
              "sw_forward_packed.cu"),
             ("forward_shared_i16_dual", "5c2", True, "sw_forward_i16.cu"),
             ("forward_shared_i16", "4t", False, "sw_forward_i16.cu"),
@@ -1906,9 +1984,13 @@ def phase_timing(torch, dev, rec, worst, launches, gated_launches, clock_mhz,
         sl = (prof, cut(ref), cut(idx), cut(own), rl, cm, seg, ss, gapO,
               gapE, quirk)
         base = (prof, cut(ref), rl, cm, seg, ss, gapO, gapE, quirk)
-        fo = lambda a: cuda_sw.forward_shared_gated(*a, **kw)
+        fo = lambda a, **k: cuda_sw.forward_shared_gated(*a, **kw, **k)
         fb = lambda a: cuda_sw.forward_shared(*a, **kw)
         ms, base_ms = in_turns(torch, lambda: fo(sl), lambda: fb(base), 3)
+        wave = "_i16" in name
+        if wave:
+            _, scan_ms = in_turns(torch, lambda: fo(sl),
+                                  lambda: fo(sl, scan_body=True), 3)
         t0 = time.perf_counter()
         want = scan_sw.forward_shared_ref_gated(*sl)
         torch.cuda.synchronize()
@@ -1932,6 +2014,8 @@ def phase_timing(torch, dev, rec, worst, launches, gated_launches, clock_mhz,
             "shape": f"B={B} L={L} R={cols} quirk={bool(quirk)} phase {t}"
                      + (" (column slice of the shard)" if cols < R else ""),
         }
+        if wave:
+            row["scan_body_ms"] = scan_ms
         if cols < R:
             bl = (prof, ref, rl, cm, seg, ss, gapO, gapE, quirk)
             own_ms, basemode_ms = in_turns(torch, lambda: fo(args),
@@ -1941,10 +2025,14 @@ def phase_timing(torch, dev, rec, worst, launches, gated_launches, clock_mhz,
                 "bound_ms": shared_bound(name, prof, cm, R, quirk,
                                          extra_bytes=5 * R)[0],
                 "shape": f"B={B} L={L} R={R} (halo + C)"}
+            if wave:
+                row["shard"]["wave_ms"], row["shard"]["scan_body_ms"] = \
+                    in_turns(torch, lambda: fo(args),
+                             lambda: fo(args, scan_body=True), 1)
         return row
 
     rows.append(owned_row("forward_shared_i16_owned",
-                          "ssw_tpu_torch/csrc/sw_forward_i16.cu", tag="5e"))
+                          "ssw_tpu_torch/csrc/sw_wave_i16.cu", tag="5e"))
     rows.append(owned_row("forward_shared_owned",
                           "ssw_tpu_torch/csrc/sw_forward.cu"))
 
@@ -2166,6 +2254,37 @@ def phase_tools_timing(torch, dev, rec, worst, launches, int32_rate,
     return rows
 
 
+def check_designs(launches, gated, libraries):
+    """The main path's launches by library: every ungated int16-tier launch
+    ran sw_wave_i16 and every gated one sw_forward_i16; the same for the
+    packed kernel (sw_wave_packed, sw_forward_packed); the int32 kernel
+    and the per-read kernel have one library each."""
+    def split(pred):
+        names = [n for n in launches if pred(n)]
+        return (sum(launches[n] - gated.get(n, 0) for n in names),
+                sum(gated.get(n, 0) for n in names))
+    i16 = split(lambda n: "_i16" in n)
+    packed = split(lambda n: "_packed" in n)
+    int32 = split(lambda n: "_i16" not in n and "_packed" not in n
+                  and n != "forward_perread")
+    for what, (ungated, with_gate), wave, scan in (
+            ("int16-tier", i16, "sw_wave_i16", "sw_forward_i16"),
+            ("packed", packed, "sw_wave_packed", "sw_forward_packed")):
+        check(ungated > 0 and libraries[wave] == ungated,
+              f"{ungated} ungated {what} launches, {libraries[wave]} in "
+              f"{wave}")
+        check(with_gate > 0 and libraries[scan] == with_gate,
+              f"{with_gate} gated {what} launches, {libraries[scan]} in "
+              f"{scan}")
+    check(libraries["sw_forward"] == sum(int32),
+          "int32 launches outside sw_forward")
+    check(libraries["sw_perread"] == launches["forward_perread"],
+          "per-read launches outside sw_perread")
+    log(f"  designs: int16 tier {i16[0]} ungated launches in sw_wave_i16, "
+        f"{i16[1]} gated in sw_forward_i16; packed {packed[0]} in "
+        f"sw_wave_packed, {packed[1]} in sw_forward_packed")
+
+
 # ---------------------------------------------------------------------- main
 
 def main() -> int:
@@ -2298,6 +2417,9 @@ def main() -> int:
             check(n > 0, f"{name} was not launched on the main path")
             check(name not in gated or gated[name] > 0,
                   f"{name} never ran with the gate on the main path")
+        libraries = cuda_sw.library_counts()
+        log(f"main-path launches by library: {json.dumps(libraries)}")
+        check_designs(launches, gated, libraries)
         t0 = time.perf_counter()
         log("phase 6 kernel timing at main-path shapes:")
         kernels = phase_timing(torch, dev, rec, worst, launches, gated,

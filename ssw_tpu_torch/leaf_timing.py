@@ -10,8 +10,13 @@ process and in the order given, prints one JSON line of CUDA-event times in
 ms: the int32 kernel with the quirk off and on, and the int16 tier, in base
 mode and, where the tree has them, in blockmax mode, with the
 bounded-radius gate, and in the owned-column mode (the leaf as shard 1 of a
-seq split: 320 halo columns before the owned ones) beside the base mode.
-Needs a CUDA card.
+seq split: 320 halo columns before the owned ones) beside the base mode;
+the packed kernel on the same reads packed at 1024 lanes (blockmax mode,
+the streaming leaf of config 4), and in dual mode on an Ion-like leaf
+(1024 reads of 120-176 bp from the same genome, 1 % substitutions, the
+L = 192 group's slots); where the tree has the column-scan bodies beside
+the wavefront (scan_body=), those too, keyed `*_scan_body_ms`.  Trees
+without a mode time what they have.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -87,6 +92,15 @@ def _time_tree(tree: str) -> dict:
             res[f"i16_bm_{label}_ms"] = ms(False, dict(bm, max_sub=2,
                                                         gate=thr))
             res[f"int32_quirk_{label}_ms"] = ms(True, {"gate": thr})
+    scan = "scan_body" in inspect.signature(cuda_sw.forward_shared).parameters
+    if scan:
+        for label, kw in (("i16", {"max_sub": 2}),
+                          ("i16_bm", dict(bm, max_sub=2))):
+            res[f"{label}_scan_body_ms"] = ms(False, dict(kw,
+                                                          scan_body=True))
+    if hasattr(cuda_sw, "forward_shared_packed"):
+        res.update(_packed_leaves(torch, common, cuda_sw, codes, ref, reads,
+                                  mat, scan))
     if hasattr(cuda_sw, "forward_shared_gated"):
         halo = 320
         idx = torch.arange(len(ref), dtype=torch.int32, device="cuda") - halo
@@ -99,7 +113,56 @@ def _time_tree(tree: str) -> dict:
             res[f"{label}_base_ms"] = ms(False, kw)
             res[f"{label}_owned_ms"] = ms(False, kw, fn=owned)
             res[f"{label}_base2_ms"] = ms(False, kw)
+        if scan:
+            res["i16_owned_scan_body_ms"] = ms(
+                False, {"max_sub": 2, "scan_body": True}, fn=owned)
     return res
+
+
+def _event_ms(torch, run, reps=3):
+    run()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        run()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def _packed_leaves(torch, common, cuda_sw, codes, ref, reads, mat, scan):
+    """The packed kernel: the config-4 reads at 1024 lanes (blockmax), and
+    an Ion-like L = 192 leaf in dual mode."""
+    rng = np.random.default_rng(2)
+    ion = []
+    for ln, s in zip(rng.integers(120, 177, 1024),
+                     rng.integers(20000, len(codes) - 200, 1024)):
+        r = codes[s:s + ln].copy()
+        m = rng.random(ln) < 0.01
+        r[m] = rng.integers(0, 4, int(m.sum()))
+        ion.append(r)
+    out = {}
+    for label, rs, L, dual in (("packed", reads, 128, False),
+                               ("packed_dual_ion", ion, 192, True)):
+        rl = np.array([len(r) for r in rs], np.int32)
+        plan = common.pack_plan((rl + 15) // 16 * 16, 1024)
+        so, sl, rl_s = common.pack_tables(plan, rl)
+        prof = common.build_profile(
+            common.pack_codes(plan, common.pad_reads(rs, L, 4), 4), None,
+            common.extend_matrix(mat))
+        fi = (plan.row * plan.S + plan.slot).astype(np.int32)
+        args = tuple(torch.as_tensor(np.ascontiguousarray(a)).cuda()
+                     for a in (prof, ref, so, sl, rl_s, fi)) + (3, 1)
+        kw = dict(max_sub=2, valid_len=len(codes), dual=dual)
+        out[f"{label}_ms"] = _event_ms(
+            torch, lambda: cuda_sw.forward_shared_packed(*args, **kw))
+        if scan:
+            out[f"{label}_scan_body_ms"] = _event_ms(
+                torch, lambda: cuda_sw.forward_shared_packed(
+                    *args, scan_body=True, **kw))
+    return out
 
 
 def main(argv: list[str]) -> int:

@@ -1,12 +1,21 @@
 """Wrappers of the hand-written CUDA DP kernels (csrc/sw_forward.cu,
-csrc/sw_forward_i16.cu, csrc/sw_forward_packed.cu, csrc/sw_perread.cu).  The
-two forward kernels have a base mode (per-column maxima), a blockmax mode
-(per-256-column maxima, the streaming suboptimal scan's input), a dual
-mode (blockmax for both tiers' row masks at once) and an owned-column mode
-(forward_shared_gated: base mode with global column indices and a best-hit
-gate, the sequence-parallel shards' pass); the packed kernel runs
-lane-packed reads (ops/pack.py) in blockmax or dual mode.  Each mode of each
-kernel has its own launch count.
+csrc/sw_forward_i16.cu, csrc/sw_forward_packed.cu, csrc/sw_perread.cu,
+csrc/sw_wave_i16.cu, csrc/sw_wave_packed.cu).  The two forward kernels have
+a base mode (per-column maxima), a blockmax mode (per-256-column maxima,
+the streaming suboptimal scan's input), a dual mode (blockmax for both
+tiers' row masks at once) and an owned-column mode (forward_shared_gated:
+base mode with global column indices and a best-hit gate, the
+sequence-parallel shards' pass); the packed kernel runs lane-packed reads
+(ops/pack.py) in blockmax or dual mode.  Each mode of each kernel has its
+own launch count, and LIBRARY counts the launches of each library.
+
+Two designs of the int16 tier and of the packed kernel.  A launch without
+the gate goes to the anti-diagonal wavefront (sw_wave_i16, sw_wave_packed;
+csrc/sw_wave.cuh); a gated launch, whose gate drops steps of the warp scan,
+to the column-scan body (sw_forward_i16, sw_forward_packed).  scan_body=True
+sends an ungated launch to the column-scan body too: chip_smoke.py and the
+card tests compare and time the two designs with it.  The int32 kernel has
+one design.
 
 Each wrapper takes the tensors of its plain twin in ops/scan_sw.py.  A
 tensor on the CPU goes to the plain version; a CUDA tensor goes to the
@@ -41,7 +50,8 @@ from ssw_tpu_torch.ops import _kernels, common, gate as gate_mod, pack, \
 # 0 + select at block starts) and the biased running prefix (add-max).
 # Shuffles, the warp scan and the reduce belong to the one-warp-per-read
 # layout, not to the recurrence, and are not counted.  The int16 tier issues
-# the same 7 as packed s16x2 instructions, each for two lane-cells.
+# the same 7 as packed s16x2 instructions, each for two lane-cells.  The
+# wavefront (sw_wave.cuh) issues the same 7 per lane-cell in another order.
 OPS_PER_CELL = 7
 OPS_PER_CELL_QUIRK = 11
 OPS_PER_CELL_I16 = OPS_PER_CELL / 2
@@ -69,6 +79,9 @@ LAUNCHES = {"forward_shared": 0, "forward_shared_i16": 0,
             "forward_perread": 0}
 # of those, the launches that ran with the gate (forward kernels only)
 GATED = {name: 0 for name in LAUNCHES if name != "forward_perread"}
+# the same launches by the library that ran them (which design, for the
+# int16 tier and the packed kernel)
+LIBRARY = {name: 0 for name in _kernels.KERNELS}
 # per device: warp-column steps by scan depth 0..5 of the gated launches
 _STEPS: dict = {}
 
@@ -149,10 +162,13 @@ def _gate_args(gate, dev):
 
 def _launch_shared(profile, ref, read_len, col_mask, seg_id, seg_start,
                    gapO, gapE, quirk, i16, blockmax=False, valid_len=None,
-                   wmask=None, gate=None, idx=None, own=None):
+                   wmask=None, gate=None, idx=None, own=None,
+                   scan_body=False):
     """One launch of the int32 kernel, or of the int16 tier (quirk off), in
     base, blockmax or dual (wmask) mode, or in the owned-column mode (idx,
-    own; base mode), gated with gate=; not counted."""
+    own; base mode), gated with gate=; not counted.  Returns the outputs
+    and the library that ran them: the int16 tier's wavefront without the
+    gate unless scan_body, else its column-scan body."""
     B, n1, L, dev = _geometry_checks(profile, read_len, col_mask, seg_id,
                                      seg_start)
     R = int(ref.shape[0])
@@ -183,14 +199,25 @@ def _launch_shared(profile, ref, read_len, col_mask, seg_id, seg_start,
     outs = (score.data_ptr(), end_ref.data_ptr(), end_read.data_ptr(),
             *mode)
     thr, hist = _gate_args(gate, dev)
+    libname = ("sw_forward" if not i16 else "sw_wave_i16"
+               if gate is None and not scan_body else "sw_forward_i16")
+    lib = _kernels.load(libname)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if i16:
-            lib = _kernels.load("sw_forward_i16")
-            scratch = _scratch(lib, "sw_forward_i16_scratch_per_pair",
-                               (B + 1) // 2, L, dev)
             head = (profile.data_ptr(), ref.data_ptr(), read_len.data_ptr(),
                     col_mask.data_ptr(), B, n1, L, R, int(gapO), int(gapE))
+            scratch = _scratch(lib, libname + "_scratch_per_pair",
+                               (B + 1) // 2, L, dev)
+        if libname == "sw_wave_i16":
+            if owned:
+                rc = lib.sw_wave_shared_i16_owned(
+                    *head, *outs[:4], idx.data_ptr(), own.data_ptr(),
+                    _ptr(scratch), stream)
+            else:
+                rc = lib.sw_wave_shared_i16(*head, *outs, _ptr(wmask),
+                                            _ptr(scratch), stream)
+        elif i16:
             if owned:
                 rc = lib.sw_forward_shared_i16_owned(
                     *head, *outs[:4], idx.data_ptr(), own.data_ptr(),
@@ -200,7 +227,6 @@ def _launch_shared(profile, ref, read_len, col_mask, seg_id, seg_start,
                     *head, *outs, _ptr(wmask), _ptr(scratch), thr, hist,
                     stream)
         else:
-            lib = _kernels.load("sw_forward")
             scratch = _scratch(lib, "sw_forward_scratch_per_read", B, L,
                                dev)
             head = (profile.data_ptr(), ref.data_ptr(), read_len.data_ptr(),
@@ -217,19 +243,20 @@ def _launch_shared(profile, ref, read_len, col_mask, seg_id, seg_start,
                     stream)
     _raise_on(lib, rc, owned_kernel_name(i16) if owned else
               shared_kernel_name(i16, blockmax, wmask is not None))
-    return score, end_ref, end_read, maxcol
+    return (score, end_ref, end_read, maxcol), libname
 
 
 _I16_CHECKED: set = set()  # card indices where the int16 tier passed
 
 
 def _i16_parity(dev):
-    """Before the int16 tier first runs on a card, run it and the int32
-    kernel on a fixed seeded workload inside the i16_exact bound and
-    require identical outputs; raise if they differ.  This is the
-    counterpart of the JAX package's _i16_supported probe, which gates its
-    int16 tier on the same device parity check.  Runs once per card; its
-    launches are comparisons and are not counted."""
+    """Before the int16 tier first runs on a card, run both of its designs
+    (the wavefront that ungated launches take and the column-scan body of
+    the gated ones) and the int32 kernel on a fixed seeded workload inside
+    the i16_exact bound and require identical outputs; raise if they
+    differ.  This is the counterpart of the JAX package's _i16_supported
+    probe, which gates its int16 tier on the same device parity check.
+    Runs once per card; its launches are comparisons and are not counted."""
     key = dev.index if dev.index is not None else torch.cuda.current_device()
     if key in _I16_CHECKED:
         return
@@ -244,11 +271,13 @@ def _i16_parity(dev):
     t = lambda a: torch.as_tensor(np.ascontiguousarray(a)).to(dev)
     args = (t(prof), t(rng.integers(0, 4, R).astype(np.int32)), t(read_len),
             t(geo.col_mask), t(geo.seg_id), t(geo.seg_start), 3, 1, False)
-    want = _launch_shared(*args, i16=False)
-    got = _launch_shared(*args, i16=True)
-    if not all(torch.equal(g, w) for g, w in zip(got, want)):
-        raise RuntimeError("the int16 tier of forward_shared disagrees with "
-                           "the int32 kernel on the parity workload")
+    want, _ = _launch_shared(*args, i16=False)
+    for scan_body in (False, True):
+        got, lib = _launch_shared(*args, i16=True, scan_body=scan_body)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise RuntimeError(f"the int16 tier of forward_shared ({lib}) "
+                               f"disagrees with the int32 kernel on the "
+                               f"parity workload")
     _I16_CHECKED.add(key)
 
 
@@ -261,7 +290,8 @@ def shared_kernel_name(i16: bool, blockmax: bool, dual: bool = False) -> str:
 def forward_shared(profile, ref, read_len, col_mask, seg_id, seg_start,
                    gapO: int, gapE: int, quirk: bool = True,
                    max_sub: int | None = None, blockmax: bool = False,
-                   valid_len: int | None = None, wmask=None, gate=None):
+                   valid_len: int | None = None, wmask=None, gate=None,
+                   scan_body: bool = False):
     """Batched forward DP against one shared target.  Returns (score,
     end_ref, end_read (B,) int32, maxcol (B, R) int16 in [0, 32767]).
 
@@ -281,7 +311,9 @@ def forward_shared(profile, ref, read_len, col_mask, seg_id, seg_start,
     pass (counted as forward_shared[_i16]_dual).
 
     gate: the bounded-radius gate's per-depth thresholds for K = L/32
-    (ops/gate.py), or None; the results are the same (counted in GATED)."""
+    (ops/gate.py), or None; the results are the same (counted in GATED).
+    The int16 tier runs the wavefront without the gate unless scan_body,
+    else the column-scan body (counted in LIBRARY)."""
     i16 = i16_exact(int(profile.shape[2]), gapO, gapE, max_sub, quirk)
     name = shared_kernel_name(i16, blockmax, wmask is not None)
     if profile.device.type == "cpu":
@@ -292,11 +324,10 @@ def forward_shared(profile, ref, read_len, col_mask, seg_id, seg_start,
         return _count_plain_steps(res, gate)
     if i16:
         _i16_parity(profile.device)
-    out = _launch_shared(profile, ref, read_len, col_mask, seg_id,
-                         seg_start, gapO, gapE, quirk, i16, blockmax,
-                         valid_len, wmask, gate)
-    LAUNCHES[name] += 1
-    GATED[name] += gate is not None
+    out, lib = _launch_shared(profile, ref, read_len, col_mask, seg_id,
+                              seg_start, gapO, gapE, quirk, i16, blockmax,
+                              valid_len, wmask, gate, scan_body=scan_body)
+    _count(name, lib, gate)
     return out
 
 
@@ -307,7 +338,8 @@ def owned_kernel_name(i16: bool) -> str:
 
 def forward_shared_gated(profile, ref, idx, own, read_len, col_mask, seg_id,
                          seg_start, gapO: int, gapE: int, quirk: bool = True,
-                         max_sub: int | None = None, gate=None):
+                         max_sub: int | None = None, gate=None,
+                         scan_body: bool = False):
     """forward_shared in the owned-column mode, the counterpart of the JAX
     package's forward_shared_ref_gated (the sequence-parallel shards of
     parallel/dist.py): idx (R,) int32 is each local column's global index
@@ -316,7 +348,7 @@ def forward_shared_gated(profile, ref, idx, own, read_len, col_mask, seg_id,
     end_read (B,) int32, maxcol (B, R) int16 in [0, 32767]) with maxima for
     every local column.  The int16 tier under the same i16_exact rule
     (counted as forward_shared_i16_owned, else forward_shared_owned), and
-    gate= as forward_shared's (the bounded-radius gate)."""
+    gate= and scan_body= as forward_shared's (the bounded-radius gate)."""
     i16 = i16_exact(int(profile.shape[2]), gapO, gapE, max_sub, quirk)
     name = owned_kernel_name(i16)
     if profile.device.type == "cpu":
@@ -326,12 +358,19 @@ def forward_shared_gated(profile, ref, idx, own, read_len, col_mask, seg_id,
         return _count_plain_steps(res, gate)
     if i16:
         _i16_parity(profile.device)
-    out = _launch_shared(profile, ref, read_len, col_mask, seg_id,
-                         seg_start, gapO, gapE, quirk, i16, gate=gate,
-                         idx=idx, own=own)
-    LAUNCHES[name] += 1
-    GATED[name] += gate is not None
+    out, lib = _launch_shared(profile, ref, read_len, col_mask, seg_id,
+                              seg_start, gapO, gapE, quirk, i16, gate=gate,
+                              idx=idx, own=own, scan_body=scan_body)
+    _count(name, lib, gate)
     return out
+
+
+def _count(name, lib, gate):
+    """Count one successful launch of kernel `name` by library `lib`."""
+    LAUNCHES[name] += 1
+    if gate is not None:
+        GATED[name] += 1
+    LIBRARY[lib] += 1
 
 
 def _count_plain_steps(res, gate):
@@ -347,7 +386,8 @@ def forward_shared_packed(profile, ref, so, sl, rl_s, flat_idx, gapO: int,
                           gapE: int, max_sub: int | None = None,
                           valid_len: int | None = None, quirk: bool = False,
                           word: bool = False, dual: bool = False,
-                          slot_max: int | None = None, gate=None):
+                          slot_max: int | None = None, gate=None,
+                          scan_body: bool = False):
     """Forward DP of lane-packed reads (ops/pack.py) against one shared
     target, always int32, in blockmax mode.  profile (n_rows, n+1, W) int8
     over the packed codes, ref (R,) int32, so/sl/rl_s (n_rows, S) int32
@@ -359,8 +399,10 @@ def forward_shared_packed(profile, ref, so, sl, rl_s, flat_idx, gapO: int,
     QBUMP span guard (pack.check_quirk_span raises outside it).  slot_max:
     the longest slot, max(sl), when the caller knows it (else read from sl,
     a device sync).  gate: per-depth thresholds for K =
-    pack.packed_lanes(slot_max)/32 (ops/gate.py).  Counted as forward_shared_packed[_dual]
-    (and in GATED with gate=)."""
+    pack.packed_lanes(slot_max)/32 (ops/gate.py).  Without the gate the
+    wavefront runs (sw_wave_packed) unless scan_body, else the column-scan
+    body (sw_forward_packed).  Counted as forward_shared_packed[_dual] (and
+    in GATED with gate=, in LIBRARY by library)."""
     if profile.device.type == "cpu":
         res = scan_sw.forward_shared_ref_packed(
             profile, ref, so, sl, rl_s, flat_idx, gapO, gapE,
@@ -393,24 +435,27 @@ def forward_shared_packed(profile, ref, so, sl, rl_s, flat_idx, gapO: int,
     end_read = torch.empty(B, dtype=torch.int32, device=dev)
     maxcol = torch.empty((B, 2, nblk) if dual else (B, nblk),
                          dtype=torch.int32, device=dev)
-    lib = _kernels.load("sw_forward_packed")
-    n = lib.sw_forward_packed_scratch_per_read(Lw, n1)
+    libname = ("sw_wave_packed" if gate is None and not scan_body
+               else "sw_forward_packed")
+    lib = _kernels.load(libname)
+    n = getattr(lib, libname + "_scratch_per_read")(Lw, n1)
     scratch = (torch.empty((B, n), dtype=torch.int32, device=dev)
                if n else None)
-    thr, hist = _gate_args(gate, dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.sw_forward_packed(
-            profile.data_ptr(), ref.data_ptr(), so.data_ptr(), sl.data_ptr(),
+    head = (profile.data_ptr(), ref.data_ptr(), so.data_ptr(), sl.data_ptr(),
             rl_s.data_ptr(), flat_idx.data_ptr(), B, n1, W, S, Lw, R, vl,
             int(gapO), int(gapE), int(bool(quirk)), 8 if word else 16,
             int(bool(dual)), score.data_ptr(), end_ref.data_ptr(),
-            end_read.data_ptr(), maxcol.data_ptr(), _ptr(scratch), thr, hist,
-            stream)
+            end_read.data_ptr(), maxcol.data_ptr(), _ptr(scratch))
+    thr, hist = _gate_args(gate, dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if libname == "sw_wave_packed":
+            rc = lib.sw_wave_packed(*head, stream)
+        else:
+            rc = lib.sw_forward_packed(*head, thr, hist, stream)
     name = "forward_shared_packed" + ("_dual" if dual else "")
     _raise_on(lib, rc, name)
-    LAUNCHES[name] += 1
-    GATED[name] += gate is not None
+    _count(name, libname, gate)
     return score, end_ref, end_read, maxcol
 
 
@@ -446,14 +491,14 @@ def forward_perread(profile, refw, read_len, col_mask, seg_id, seg_start,
             int(bool(quirk)), score.data_ptr(), end_ref.data_ptr(),
             end_read.data_ptr(), _ptr(maxcol), _ptr(scratch), stream)
     _raise_on(lib, rc, "forward_perread")
-    LAUNCHES["forward_perread"] += 1
+    _count("forward_perread", "sw_perread", None)
     out = (score, end_ref, end_read)
     return out + (maxcol,) if emit_maxcol else out
 
 
 def reset_launches():
-    """Set LAUNCHES and GATED to 0."""
-    for counts in (LAUNCHES, GATED):
+    """Set LAUNCHES, GATED and LIBRARY to 0."""
+    for counts in (LAUNCHES, GATED, LIBRARY):
         for name in counts:
             counts[name] = 0
 
@@ -464,6 +509,10 @@ def launch_counts() -> dict:
 
 def gated_counts() -> dict:
     return dict(GATED)
+
+
+def library_counts() -> dict:
+    return dict(LIBRARY)
 
 
 def reset_gate_steps():

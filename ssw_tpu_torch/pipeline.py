@@ -319,20 +319,31 @@ GATE: bool | str | None = None
 
 def _gate_rule(K: int, span: int, L: int, gapO: int, gapE: int,
                max_sub: int, quirk: bool, pack_bound: int | None):
-    """GATE = None on the H100: the card's tiers (gate.card_thresholds, lag
-    1) where the JAX plan's noise test passes (gate.clears_noise) and the
-    quirk is off, else no gate.
+    """GATE = None on the H100: no gate for a packed launch or one of the
+    int16 tier, which run the anti-diagonal wavefront ungated; for the
+    int32 kernel the card's tiers (gate.card_thresholds, lag 1) where the
+    JAX plan's noise test passes (gate.clears_noise) and the quirk is off,
+    else no gate.
 
-    Gated against ungated in turns on one card (NVIDIA H100 80GB HBM3,
-    700 W; PERF.md): where nearly every column takes depth 0, the gate
-    pays (the Ion Torrent headline at -m1 -x3 -o5 -e2, chip_smoke.py phase
-    5d: 6.564 and 6.495 s against 8.432 s without it); at default DNA
-    penalties most columns take depth 3 and the switch per column costs
-    about what the two saved shuffle steps save (config-4 leaf,
-    ssw_tpu_torch/leaf_timing.py: int32 blockmax 269.4 against 274.3 ms,
-    the int16 tier 314.6 against 295.0 ms; chip_smoke.py phase 6: packed
-    268.47 against 258.07 ms); with the quirk, whose own scan is never
-    gated, it loses (408.8 against 291.6 ms)."""
+    The gate drops steps of the warp scan, which only the column-scan
+    bodies have, so a gated packed or int16 launch runs the column-scan
+    design.  Gated scan against the ungated wavefront in turns on one card
+    (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6; chip_smoke.py): the Ion
+    Torrent headline at -m1 -x3 -o5 -e2 (phase 5d, where the rule gated
+    before the wavefront) 6.443 and 6.378 s with the gate against 3.175 s
+    without; leaves (phase 6) packed dual there 1,383.91 against 629.42 ms,
+    packed dual at default penalties 1,315.06 against 491.38 ms, the int16
+    dual leaf 1,875.73 against 735.08 ms, the config-4 packed leaf with
+    the card's tiers 266.70 against 89.95 ms.  For the int32 kernel the
+    earlier measurements stand: where nearly every column takes depth 0 the
+    gate pays (phase 5d: 6.564 and 6.495 s against 8.432 s); at default DNA
+    penalties most columns take depth 3 and it pays nothing (config-4
+    int32 blockmax leaf 269.4 against 274.3 ms, leaf_timing.py); with the
+    quirk, whose own scan is never gated, it loses (408.8 against 291.6
+    ms)."""
+    if pack_bound is not None or cuda_sw.i16_exact(L, gapO, gapE, max_sub,
+                                                   quirk):
+        return None
     if quirk or not gate.clears_noise(L, gapO, gapE, max_sub, pack_bound):
         return None
     return gate.card_thresholds(K, span, gapO, gapE, max_sub)

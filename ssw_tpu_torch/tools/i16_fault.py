@@ -273,7 +273,8 @@ def launch(name, args, fill=0) -> list:
     saved = _kernels._libs.get("sw_forward_i16")
     _kernels._libs["sw_forward_i16"] = load(name)
     try:
-        got = cuda_sw._launch_shared(*args, 3, 1, False, i16=True)
+        got, _ = cuda_sw._launch_shared(*args, 3, 1, False, i16=True,
+                                        scan_body=True)
     finally:
         os.environ.pop(FILL_ENV)
         if saved is None:

@@ -1,12 +1,13 @@
-"""Compare the SASS of the main-path kernel libraries with another tree's.
+"""Compare the SASS of the kernel libraries with another tree's.
 
 Builds the kernel sources of another checkout's csrc/ (for example the
 parent commit's, unpacked with `git archive`) into
 ssw_tpu_torch/build/sass_diff/, builds this tree's as usual, and compares
 every kernel that both libraries have by its `cuobjdump -sass` text (the
-anonymous-namespace hash in the names set aside) and its ptxas registers.
-A change that claims to leave the production kernels alone shows zero
-differences here.
+anonymous-namespace hash in the names set aside) and its ptxas registers,
+for the main path's libraries and the tools'.  A library the other tree
+has no source for is listed as new.  A change that claims to leave the
+existing kernels alone shows zero differences here.
 
     python -m ssw_tpu_torch.tools.sass_diff OTHER/ssw_tpu_torch/csrc
 """
@@ -64,17 +65,25 @@ def main(argv=None) -> int:
                          "OTHER/ssw_tpu_torch/csrc")
     other = argv[0]
     os.makedirs(OUT, exist_ok=True)
+    names = _kernels.KERNELS + _kernels.TOOL_KERNELS
+    shared = [n for n in names
+              if os.path.exists(os.path.join(other, f"{n}.cu"))]
     procs = {n: subprocess.Popen(
         [_kernels.nvcc_path(), _kernels.ARCH, "-std=c++17", "-O3", "-shared",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o",
          os.path.join(OUT, f"lib{n}.so"), os.path.join(other, f"{n}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for n in _kernels.KERNELS}
-    for n in _kernels.KERNELS:  # this tree's, built afresh for its log
+        for n in shared}
+    for n in names:  # this tree's, built afresh for its log
         if os.path.exists(_kernels._lib_path(n)):
             os.unlink(_kernels._lib_path(n))
-    _kernels.build(_kernels.KERNELS)
+    _kernels.build(names)
     print(f"nvidia-smi: {_common.card_line()}")
+    for n in names:
+        if n not in shared:
+            print(json.dumps({"library": n, "new": True,
+                              "kernels": len(_sass(_kernels._lib_path(n)))}),
+                  flush=True)
     for n, p in procs.items():
         _, err = p.communicate()
         if p.returncode:

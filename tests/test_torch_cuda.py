@@ -494,9 +494,77 @@ def test_i16_k14_fault_input_pinned(card):
 
     args = i16_fault.failing_input(card)
     before = cuda_sw.launch_counts()["forward_shared_i16"]
+    wave_before = cuda_sw.library_counts()["sw_wave_i16"]
     got = cuda_sw.forward_shared(*args, 3, 1, False, max_sub=2)
     assert cuda_sw.launch_counts()["forward_shared_i16"] == before + 1
+    assert cuda_sw.library_counts()["sw_wave_i16"] == wave_before + 1
     _equal(got, scan_sw.forward_shared_ref(*args, 3, 1, False))
+    _equal(got, cuda_sw.forward_shared(*args, 3, 1, False, max_sub=2,
+                                       scan_body=True))
+
+
+@pytest.mark.parametrize("mode", ["base", "blockmax", "dual", "owned"])
+@pytest.mark.parametrize("L,B", [(64, 36), (448, 23), (1024, 9), (96, 11),
+                                 (1088, 5)])
+def test_wave_i16_kernel_equals_plain_and_scan_body(card, mode, L, B):
+    """The int16 wavefront (csrc/sw_wave_i16.cu) in every mode, at register
+    K (2, 14, 32) and global-row K (3, 34), odd B: equal to its plain twin
+    and to the column-scan body of sw_forward_i16.cu on the same inputs,
+    and counted in LIBRARY as sw_wave_i16."""
+    R = 1500
+    args = _inputs(card, B, L, R, dna_matrix(2, 2), False, seed=L + B)
+    kw = {}
+    if mode in ("blockmax", "dual"):
+        kw = dict(blockmax=True, valid_len=1270)
+    if mode == "dual":
+        j = torch.arange(L, device=card)[None, :]
+        kw["wmask"] = (j < (args[2][:, None] + 7) // 8 * 8).contiguous()
+    if mode == "owned":
+        idx, own = _owned_cols(card, R, seed=L)
+        fn = lambda **k: cuda_sw.forward_shared_gated(  # noqa: E731
+            *args[:2], idx, own, *args[2:], 3, 1, False, max_sub=2, **k)
+        want = scan_sw.forward_shared_ref_gated(*args[:2], idx, own,
+                                                *args[2:], 3, 1, False)
+    else:
+        fn = lambda **k: cuda_sw.forward_shared(  # noqa: E731
+            *args, 3, 1, False, max_sub=2, **kw, **k)
+        want = scan_sw.forward_shared_ref(*args, 3, 1, False, **kw)
+    before = cuda_sw.library_counts()
+    got = fn()
+    after = cuda_sw.library_counts()
+    assert after["sw_wave_i16"] == before["sw_wave_i16"] + 1
+    assert after["sw_forward_i16"] == before["sw_forward_i16"]
+    _equal(got, want)
+    _equal(got, fn(scan_body=True))
+    assert cuda_sw.library_counts()["sw_forward_i16"] == \
+        after["sw_forward_i16"] + 1
+
+
+@pytest.mark.parametrize("W,lens,mat,quirk,word,dual", [
+    (1024, list(range(20, 221, 5)), dna_matrix(2, 2), False, False, False),
+    (1024, list(range(20, 221, 5)), dna_matrix(2, 2), False, False, True),
+    (512, list(range(20, 200, 9)), dna_matrix(2, 4), True, True, False),
+    (1024, list(range(20, 221, 7)), dna_matrix(2, 4), True, False, False),
+    (1024, [1000, 17, 250, 0, 1, 600], dna_matrix(2, 2), False, False,
+     True),
+    (4096, [1100, 1300, 1499, 0, 1], dna_matrix(2, 2), False, False, True),
+])
+def test_wave_packed_kernel_equals_plain_and_scan_body(card, W, lens, mat,
+                                                       quirk, word, dual):
+    """The packed wavefront (csrc/sw_wave_packed.cu): blockmax and dual, the
+    quirk on 8 (word) and 16 (byte) lane blocks, register K up to 32 and
+    slots past 1024 lanes; equal to its plain twin and to the column-scan
+    body of sw_forward_packed.cu on the same inputs."""
+    packed, _, _ = _packed_inputs(card, lens, W, 768, 700, mat, seed=W + 1,
+                                  word_rows=np.full(len(lens), word))
+    kw = dict(max_sub=int(np.abs(mat).max()), valid_len=700, quirk=quirk,
+              word=word, dual=dual)
+    before = cuda_sw.library_counts()["sw_wave_packed"]
+    got = cuda_sw.forward_shared_packed(*packed, 3, 1, **kw)
+    assert cuda_sw.library_counts()["sw_wave_packed"] == before + 1
+    _equal(got, scan_sw.forward_shared_ref_packed(*packed, 3, 1, **kw))
+    _equal(got, cuda_sw.forward_shared_packed(*packed, 3, 1, scan_body=True,
+                                              **kw))
 
 
 def test_probe_swar_kernel_equals_plain(card):
