@@ -22,11 +22,15 @@ Phases (any failure exits non-zero before the final line):
      model and the ungated launch, depth histograms count for count; the
      owned-column mode of both forward kernels (phase_owned: random and
      shard idx/own, K 2 to 16 and 34, odd B, the quirk, gated and not);
-     every ungated int16-tier and packed case runs the anti-diagonal
-     wavefront (sw_wave_i16, sw_wave_packed) and is also held equal to the
-     column-scan body of the same mode (sw_forward_i16, sw_forward_packed,
-     scan_body=True), the K = 14 int16 fault input and two more seeds of
-     its shape included; the gated cases stay on the column-scan bodies
+     every ungated case runs the anti-diagonal wavefront (sw_wave_i32,
+     sw_wave_i16, sw_wave_packed, sw_wave_perread) and is also held equal
+     to the column-scan body of the same mode (sw_forward, sw_forward_i16,
+     sw_forward_packed, sw_perread; scan_body=True): the int32 quirk at L
+     64 to 1088, the K = 14 int16 fault input and two more seeds of its
+     shape (int16 and int32), per-read windows with terminate, emit_maxcol
+     and the quirk at L 64 to 1088, and hand-built terminate windows
+     (tools/_common.terminate_case: later columns beat the terminate
+     column, ties); the gated cases stay on the column-scan bodies
   4. the ssw_test main path (ssw_tpu_torch.cli.main) on the card, byte-equal
      to the reference-binary captures in tests/golden (configs 1-3), then
      every golden again with the streaming suboptimal scan forced, and with
@@ -54,12 +58,13 @@ Phases (any failure exits non-zero before the final line):
      re-run route (PACK = DUAL = False), the JAX planner's packing (PACK =
      True), these three with the card's gate tiers everywhere, GATE = False
      and the default again, byte-equal; then its reads of 273 bp and more
-     with the penalties scaled by 20 (the int32 tier, gate tiers), dual vs
-     the re-run route, byte-equal.
+     with the penalties scaled by 20 (the int32 tier), dual and the re-run
+     route, by the card's rule (the int32 wavefront) and with the card's
+     gate tiers (the column-scan body), byte-equal.
   5d. the same reads and genome with the README's second penalty set,
      -m 1 -x 3 -o 5 -e 2 -c -s -h (the JAX package's gate_plan turns its
-     gate on there; the card's rule gates no packed or int16 launch), in
-     turns: GATE = None, False, True, None, byte-equal.
+     gate on there; the card's rule gates no launch), in turns: GATE =
+     None, False, True, None, byte-equal.
   5e. BASELINE config 5 on one card: phase 5b's target and its first 2048
      reads, -c -s -h -r, through dcli align --batch-size 1024 --mesh-seq 4
      over [card] x 4 (the sequence-parallel path: halo re-compute, best-hit
@@ -70,14 +75,18 @@ Phases (any failure exits non-zero before the final line):
      Launch counts are set to 0 before phase 4 and read after phase 5f:
      these are the main path, and each kernel must have run in it, each
      forward kernel with the gate too; the counts by library must show
-     every ungated int16-tier and packed launch in the wavefront libraries
-     and every gated one in the column-scan libraries.
+     every ungated forward launch in the wavefront libraries, every gated
+     one in the column-scan libraries and every per-read launch in
+     sw_wave_perread.
   6. kernel timing at the largest shapes phases 4-5d gave each kernel,
      beside the plain version and the integer-ALU bound, the wavefront
-     kernels in turns against the column-scan body of the same library on
-     the same inputs (the config-4 int16 base and blockmax leaves, the Ion
-     int16 dual leaf, the config-4 packed leaf, the Ion L = 192 packed
-     dual leaf, the largest config-5 owned shard), packed leaves
+     kernels in turns against the column-scan body of the same mode on
+     the same inputs (the config-4 int32, int16 base and blockmax leaves,
+     the Ion x20 int32 blockmax and dual leaves, the Ion int16 dual leaf,
+     the config-4 packed leaf, the Ion L = 192 packed dual leaf, the
+     protein-golden int32 launch with the quirk, the int32 owned launch,
+     the largest config-5 owned shard, the reverse pass and the 10 Mbp
+     window re-run), packed leaves
      beside unpacked leaves of the same reads in turns, each gated
      kernel family beside its ungated launch in turns, and the owned
      kernels beside their base mode on the same inputs in turns (the
@@ -92,8 +101,9 @@ Phases (any failure exits non-zero before the final line):
      of each max form (one warp, the whole card), the DPX SASS table, the
      lab's variants in turns against full on the config-4 int32 leaf's
      slice, each held there to its plain twin and kernel-run comparisons
-     (tolerance 0), and full against the production kernel on the whole
-     leaf (within 3 %); prints the {"kernels": [...]} line
+     (tolerance 0), and full against the production column-scan body (the
+     lab's copy) on the whole leaf (within 3 %); prints the {"kernels":
+     [...]} line
 
 The last line of stdout is {"ok": true, "device": {...}}.  Imports nothing
 of JAX and nothing of the JAX package.
@@ -218,6 +228,40 @@ def same_as_scan_body(label, got, scan):
 
 # ------------------------------------------------------------------- phase 3
 
+def phase_terminate(torch, dev, worst):
+    """The per-read kernel's terminate rule on hand-built windows
+    (tools/_common.terminate_case): every distinct column maximum of a
+    window as terminate[b], so the column after the terminate column
+    mostly holds a higher maximum and values tie across columns and rows;
+    DNA and BLOSUM50 with the quirk, emit_maxcol off and on; against the
+    plain version and the column-scan body."""
+    from ssw_tpu_torch.core.encoding import BLOSUM50
+    from ssw_tpu_torch.ops import cuda_sw, scan_sw
+    from ssw_tpu_torch.tools import _common as tools_common
+
+    for label, mat, quirk, word, L in (
+            ("dna 2/-2", dna_mat(2, 2), False, False, 64),
+            ("BLOSUM50 quirk", BLOSUM50, True, True, 128)):
+        args, term = tools_common.terminate_case(
+            dev, mat=mat, word=word, seed=len(label), quirk=quirk, L=L)
+        for emit in (False, True):
+            got = cuda_sw.forward_perread(*args, 3, 1, quirk,
+                                          terminate=term, emit_maxcol=emit)
+            want = scan_sw.forward_perread_ref(*args, 3, 1, quirk,
+                                               terminate=term,
+                                               emit_maxcol=emit)
+            torch.cuda.synchronize()
+            err = max_abs_diff(torch, got, want)
+            worst["forward_perread"] = max(worst["forward_perread"], err)
+            name = (f"terminate by hand {label} B={term.numel()} "
+                    f"emit_maxcol={emit}")
+            log(f"  {name}: max_abs_err {err}")
+            check(err == 0, f"{name}: kernel != plain (max_abs_err {err})")
+            same_as_scan_body(name, got, lambda: cuda_sw.forward_perread(
+                *args, 3, 1, quirk, terminate=term, emit_maxcol=emit,
+                scan_body=True))
+
+
 def phase_kernels(torch, dev):
     from ssw_tpu_torch.core.encoding import BLOSUM50
     from ssw_tpu_torch.ops import common, cuda_sw, scan_sw
@@ -240,8 +284,11 @@ def phase_kernels(torch, dev):
             (dna_mat(1, 3), 5, 2, False, False, True, True),
             (BLOSUM50, 3, 1, True, False, False, True),
             (BLOSUM50, 3, 1, True, False, True, False),
-            (dna_mat(2, 2), 3, 1, False, False, True, True))):
-        L = (128, 256, 64, 128, 192, 1088)[j]
+            (dna_mat(2, 2), 3, 1, False, False, True, True),
+            (BLOSUM50, 3, 1, True, True, True, True),
+            (BLOSUM50, 10, 1, True, False, True, False),
+            (BLOSUM50, 3, 1, True, True, False, True))):
+        L = (128, 256, 64, 128, 192, 1088, 1088, 448, 320)[j]
         cases.append((f"perread L={L} gapO={gO} gapE={gE} quirk={quirk} "
                       f"word={word} terminate={term} emit_maxcol={emit}",
                       "perread",
@@ -276,12 +323,11 @@ def phase_kernels(torch, dev):
                     + f": max_abs_err {err}")
                 check(err == 0, f"{label} {name}: kernel != plain "
                       f"(max_abs_err {err})")
-                if ms is not None:
-                    same_as_scan_body(
-                        f"{label} {name}", g, lambda: cuda_sw.forward_shared(
-                            *args, gO, gE, quirk, max_sub=ms, blockmax=bm,
-                            valid_len=valid_len if bm else None,
-                            scan_body=True))
+                same_as_scan_body(
+                    f"{label} {name}", g, lambda: cuda_sw.forward_shared(
+                        *args, gO, gE, quirk, max_sub=ms, blockmax=bm,
+                        valid_len=valid_len if bm else None,
+                        scan_body=True))
             check(max_abs_diff(torch, got_bm[:3], got[:3]) == 0,
                   f"{label}: blockmax score/ends differ from the base "
                   f"mode's")
@@ -317,6 +363,10 @@ def phase_kernels(torch, dev):
         worst["forward_perread"] = max(worst["forward_perread"], err)
         log(f"  {label}: max_abs_err {err}")
         check(err == 0, f"{label}: kernel != plain (max_abs_err {err})")
+        same_as_scan_body(label, got, lambda: cuda_sw.forward_perread(
+            *args, kw["gO"], kw["gE"], kw["quirk"], terminate=term,
+            emit_maxcol=kw["emit"], scan_body=True))
+    phase_terminate(torch, dev, worst)
     # two more seeds of the shape on which an int16 build once went wrong
     # at K = 14 (ROADMAP §C; the failing input, seed 106, is the case
     # `shared L=448 gapO=3 gapE=1 quirk=False word=False` above): the
@@ -336,6 +386,16 @@ def phase_kernels(torch, dev):
         same_as_scan_body(f"K=14 int16 pin seed {seed}", got,
                           lambda: cuda_sw.forward_shared(
                               *args, 3, 1, False, max_sub=2, scan_body=True))
+        got = cuda_sw.forward_shared(*args, 3, 1, False)
+        torch.cuda.synchronize()
+        err = max_abs_diff(torch, got, want)
+        worst["forward_shared"] = max(worst["forward_shared"], err)
+        log(f"  K=14 int32 seed {seed}: max_abs_err {err}")
+        check(err == 0, f"the int32 wavefront at K = 14, seed {seed}: "
+              f"max_abs_err {err}")
+        same_as_scan_body(f"K=14 int32 seed {seed}", got,
+                          lambda: cuda_sw.forward_shared(
+                              *args, 3, 1, False, scan_body=True))
     # main-path shape: 256 sampled 100 bp reads vs the first 32768 columns
     # of 1M.fa
     seq = load_genome()
@@ -494,13 +554,12 @@ def phase_packed(torch, dev, worst):
                     torch.cuda.synchronize()
                     dname = cuda_sw.shared_kernel_name(tier is not None,
                                                        True, True)
-                    if tier is not None:
-                        same_as_scan_body(
-                            f"{dname} {label}", ud,
-                            lambda: cuda_sw.forward_shared(
-                                *ua[:3], cm_byte, *ua[4:], gO, gE, False,
-                                max_sub=tier, blockmax=True, valid_len=vl,
-                                wmask=cm_word, scan_body=True))
+                    same_as_scan_body(
+                        f"{dname} {label}", ud,
+                        lambda: cuda_sw.forward_shared(
+                            *ua[:3], cm_byte, *ua[4:], gO, gE, False,
+                            max_sub=tier, blockmax=True, valid_len=vl,
+                            wmask=cm_word, scan_body=True))
                     derr = max_abs_diff(torch, ud, uw)
                     worst[dname] = max(worst[dname], derr)
                     log(f"  {dname} {label}: max_abs_err {derr}, equal to "
@@ -764,7 +823,7 @@ def phase_owned(torch, dev, worst):
                     + f": max_abs_err {err}")
                 check(err == 0, f"owned {label} {name}: kernel != plain "
                       f"(max_abs_err {err})")
-                if tier is not None and g is None:
+                if g is None:
                     same_as_scan_body(
                         f"owned {label} {name}", got,
                         lambda: cuda_sw.forward_shared_gated(
@@ -1082,10 +1141,11 @@ def run_sam(torch, dev, target, fq, label, card, truth=None,
 
 
 def check_gated(label, gate_setting, res):
-    """A run with GATE = False launches nothing gated, one with "tiers"
-    launches only gated forward kernels."""
+    """A run with GATE = False or None (the card's rule gates no launch)
+    launches nothing gated, one with "tiers" launches only gated forward
+    kernels."""
     fwd = {k: n for k, n in res["launches"].items() if k != "forward_perread"}
-    if gate_setting is False:
+    if gate_setting is False or gate_setting is None:
         check(not res["gated"], f"{label}: gated launches {res['gated']}")
     if gate_setting == "tiers":
         check(res["gated"] == fwd, f"{label}: gated launches "
@@ -1099,8 +1159,7 @@ def phase_config4(torch, dev, scratch, n_reads, card):
     by the default rules (which pack), the default rules without the gate
     (GATE = False) twice and the default again: every SAM output must be
     byte-equal.
-    pipeline.STREAM_MIN_COLS, _pack_rule and _gate_rule are set from these
-    walls."""
+    pipeline.STREAM_MIN_COLS and _pack_rule are set from these walls."""
     from ssw_tpu_torch import pipeline
 
     fq = os.path.join(scratch, "illumina_1M.fastq")
@@ -1251,8 +1310,9 @@ def phase_iontorrent(torch, dev, scratch, card, ion):
     (GATE = "tiers"), GATE = False and the default again; byte-equal SAMs.
     Then the reads of ION_I32_MIN_LEN bp and more with the default
     penalties scaled by 20 (-m 40 -x 40 -o 60 -e 20: the same alignments,
-    outside the int16 tier's bound), dual vs the re-run route, both with
-    the card's gate tiers."""
+    outside the int16 tier's bound), dual and the re-run route, by the
+    card's rule (the int32 wavefront) and with the card's gate tiers (the
+    column-scan body)."""
     from ssw_tpu_torch import pipeline
 
     target, fq, truth = ion
@@ -1291,32 +1351,38 @@ def phase_iontorrent(torch, dev, scratch, card, ion):
                 g.writelines(lines[k:k + 4])
     flags = ("-m", "40", "-x", "40", "-o", "60", "-e", "20", "-c", "-s",
              "-h")
-    outs32 = []
-    for i, du in enumerate((None, False)):
-        # the unpacked int32 tier, with the card's gate tiers everywhere
-        pipeline.PACK, pipeline.DUAL, pipeline.GATE = False, du, "tiers"
+    outs32, walls32 = [], {}
+    for i, (du, gt) in enumerate(((None, None), (False, None),
+                                  (None, "tiers"), (False, "tiers"))):
+        # the unpacked int32 tier: by the card's rule (the wavefront), then
+        # with the card's gate tiers everywhere (the column-scan body)
+        pipeline.PACK, pipeline.DUAL, pipeline.GATE = False, du, gt
         tags[0] = f"5c_i32_{i}"
+        label = (f"ion >= {ION_I32_MIN_LEN} bp x20 penalties "
+                 + ("dual" if du is None else "re-run route")
+                 + f" GATE={gt}")
         try:
-            out, r = run_sam(torch, dev, target, fq32,
-                             f"ion >= {ION_I32_MIN_LEN} bp x20 penalties "
-                             + ("dual" if du is None else "re-run route")
-                             + " GATE=tiers", card, None, flags=flags)
+            out, r = run_sam(torch, dev, target, fq32, label, card, None,
+                             flags=flags)
         finally:
             pipeline.PACK = pipeline.DUAL = pipeline.GATE = None
-        check_gated("Ion Torrent x20", "tiers", r)
+        check_gated("Ion Torrent x20", gt, r)
         outs32.append(out)
+        walls32[label] = r["wall_s"]
         if du is None:
             check(r["launches"].get("forward_shared_dual", 0) > 0,
                   "scaled penalties did not take the int32 dual tier")
     recs = [ln.split("\t") for ln in outs32[0].splitlines()
             if not ln.startswith("@")]
     hits = sum(int(f[3]) - 1 == truth.get(f[0], -10) for f in recs)
-    check(outs32[0] == outs32[1] and recs and hits >= 0.95 * len(recs),
-          "Ion Torrent, scaled penalties: dual != re-run route, or reads "
-          "off their sampled position")
-    log(f"  ion x20 penalties: {len(recs)} reads, dual SAM byte-equal to "
-        f"the re-run route's, {hits / len(recs):.4f} at the sampled "
-        f"position")
+    check(all(o == outs32[0] for o in outs32) and recs
+          and hits >= 0.95 * len(recs),
+          "Ion Torrent, scaled penalties: the dual and re-run routes, gated "
+          "or not, differ, or reads are off their sampled position")
+    log(f"  ion x20 penalties: {len(recs)} reads, four SAMs byte-equal "
+        f"(dual and re-run route, the rule and GATE=tiers), "
+        f"{hits / len(recs):.4f} at the sampled position; walls "
+        f"{json.dumps(walls32)}")
     return res
 
 
@@ -1327,10 +1393,10 @@ def phase_iontorrent_o5e2(torch, dev, card, ion):
     """The reference README's second configuration of the Ion Torrent
     headline: the same reads and genome with -m 1 -x 3 -o 5 -e 2 -c -s -h,
     the only full-size run where the JAX package's gate_plan turns the gate
-    on.  In turns: the card's rule (GATE = None: no gate on its packed and
-    int16 launches, which run the wavefront), no gate, the JAX plan (GATE =
-    True: the column-scan bodies, gated), the card's rule again; byte-equal
-    SAMs, >= 95 % of reads at the sampled position."""
+    on.  In turns: the card's rule (GATE = None: no gate, every launch the
+    wavefront), no gate, the JAX plan (GATE = True: the column-scan bodies,
+    gated), the card's rule again; byte-equal SAMs, >= 95 % of reads at the
+    sampled position."""
     from ssw_tpu_torch import pipeline
 
     target, fq, truth = ion
@@ -1350,10 +1416,6 @@ def phase_iontorrent_o5e2(torch, dev, card, ion):
         check_gated(f"Ion Torrent o5e2 {label}", gt, r)
         check(gt is not True or r["gated"], f"Ion Torrent o5e2 {label}: the "
               f"gate did not run")
-        check(gt is not None or not any("_i16" in k or "_packed" in k
-                                        for k in r["gated"]),
-              f"Ion Torrent o5e2 {label}: the card's rule gated a packed or "
-              f"int16 launch: {r['gated']}")
         outs.append(out)
         res.setdefault(label, []).append(r)
     check(all(o == outs[0] for o in outs), "Ion Torrent o5e2: the SAMs of "
@@ -1633,8 +1695,8 @@ def phase_timing(torch, dev, rec, worst, launches, gated_launches, clock_mhz,
         """forward_shared's kernel `name` at its largest main-path call (or
         its largest in phase `tag`); the plain version and the bound on a
         column slice of the same inputs when the call is too long for the
-        plain version.  The int16 tier (the wavefront) is timed in turns
-        with the column-scan body of the same mode on the slice and, with
+        plain version.  The wavefront is timed in turns with the
+        column-scan body of the same mode on the slice and, with
         leaf_turns, on the whole leaf."""
         args, kw, t = call(name, tag)
         prof, ref, rl, cm, seg, ss, gapO, gapE, quirk = args
@@ -1646,12 +1708,8 @@ def phase_timing(torch, dev, rec, worst, launches, gated_launches, clock_mhz,
               gapE, quirk)
         plain_kw = {k: v for k, v in kw.items() if k != "max_sub"}
         fk = lambda a, **k: cuda_sw.forward_shared(*a, **kw, **k)
-        wave = "_i16" in name
-        if wave:
-            ms, scan_ms = in_turns(torch, lambda: fk(sl),
-                                   lambda: fk(sl, scan_body=True), 5)
-        else:
-            ms = time_ms(torch, lambda: fk(sl), 5)
+        ms, scan_ms = in_turns(torch, lambda: fk(sl),
+                               lambda: fk(sl, scan_body=True), 5)
         t0 = time.perf_counter()
         want = scan_sw.forward_shared_ref(*sl, **plain_kw)
         torch.cuda.synchronize()
@@ -1670,15 +1728,15 @@ def phase_timing(torch, dev, rec, worst, launches, gated_launches, clock_mhz,
             "bound_by": b_by, "library_ms": None,
             "shape": f"B={B} L={L} R={cols} quirk={bool(quirk)} phase {t}"
                      + (" (column slice of the leaf)" if cols < R else ""),
+            "scan_body_ms": scan_ms,
         }
-        if wave:
-            row["scan_body_ms"] = scan_ms
-        if cols < R and wave and leaf_turns:
+        if cols < R and leaf_turns:
             row["leaf_ms"], row["scan_body_leaf_ms"] = in_turns(
                 torch, lambda: fk(args), lambda: fk(args, scan_body=True), 1)
         elif cols < R:
             reps = 1 if B * R > (1 << 32) else 3
             row["leaf_ms"] = time_ms(torch, lambda: fk(args), reps)
+        if cols < R:
             row["leaf_bound_ms"] = shared_bound(name, prof, cm, R, quirk,
                                                 wm)[0]
             row["leaf_shape"] = f"B={B} L={L} R={R}"
@@ -1698,7 +1756,7 @@ def phase_timing(torch, dev, rec, worst, launches, gated_launches, clock_mhz,
                      f"R={ref.numel()}"}
 
     row, _, _ = shared_row(
-        "forward_shared", "ssw_tpu_torch/csrc/sw_forward.cu",
+        "forward_shared", "ssw_tpu_torch/csrc/sw_wave_i32.cu",
         "ssw_tpu/ops/pallas_sw.py:109 (_forward_kernel, base mode, int32; "
         "pallas_call at :557)")
     rows.append(row)
@@ -1707,11 +1765,13 @@ def phase_timing(torch, dev, rec, worst, launches, gated_launches, clock_mhz,
         "ssw_tpu/ops/pallas_sw.py:109 (_forward_kernel, int16 tier: use_i16 "
         "chosen at :735, pallas_call at :557; probe _i16_supported :576)",
         tag="5")
-    # the int32 kernel on the same config-4 leaf (same inputs, same call)
+    # the int32 kernel on the same config-4 leaf (same inputs, same call),
+    # the wavefront in turns with the column-scan body
     prof, ref, rl, cm, seg, ss, gapO, gapE, quirk = c4
     B = prof.shape[0]
-    row["int32_leaf_ms"] = time_ms(
-        torch, lambda: cuda_sw.forward_shared(*c4), 3)
+    row["int32_leaf_ms"], row["int32_scan_body_leaf_ms"] = in_turns(
+        torch, lambda: cuda_sw.forward_shared(*c4),
+        lambda: cuda_sw.forward_shared(*c4, scan_body=True), 1)
     row["int32_leaf_bound_ms"] = shared_bound(
         "forward_shared", prof, cm, int(ref.numel()), quirk)[0]
     rows.append(row)
@@ -1729,7 +1789,7 @@ def phase_timing(torch, dev, rec, worst, launches, gated_launches, clock_mhz,
     # blockmax mode, int32: its largest main-path call (protein goldens),
     # then on the config-4 streaming leaf beside the base mode, in turns
     row, _, _ = shared_row(
-        "forward_shared_blockmax", "ssw_tpu_torch/csrc/sw_forward.cu",
+        "forward_shared_blockmax", "ssw_tpu_torch/csrc/sw_wave_i32.cu",
         "ssw_tpu/ops/pallas_sw.py:109 (_forward_kernel, blockmax/lanetrack "
         "mode :153-213, :278-297, :361-416, int32; pallas_call at :557; "
         "wrapper forward_shared_ref :702 with blockmax=True)")
@@ -1764,7 +1824,7 @@ def phase_timing(torch, dev, rec, worst, launches, gated_launches, clock_mhz,
     for name, source, tier in (
             ("forward_shared_i16_dual", "ssw_tpu_torch/csrc/sw_wave_i16.cu",
              "int16 tier"),
-            ("forward_shared_dual", "ssw_tpu_torch/csrc/sw_forward.cu",
+            ("forward_shared_dual", "ssw_tpu_torch/csrc/sw_wave_i32.cu",
              "int32")):
         row, args, kw = shared_row(
             name, source,
@@ -1963,7 +2023,8 @@ def phase_timing(torch, dev, rec, worst, launches, gated_launches, clock_mhz,
             ("forward_shared_i16_dual", "5c2", True, "sw_forward_i16.cu"),
             ("forward_shared_i16", "4t", False, "sw_forward_i16.cu"),
             ("forward_shared", "4t", False, "sw_forward.cu"),
-            ("forward_shared_dual", "5c_i32_0", False, "sw_forward.cu")):
+            ("forward_shared_dual", "5c_i32_2", True, "sw_forward.cu"),
+            ("forward_shared_blockmax", "5c_i32_3", True, "sw_forward.cu")):
         rows.append(gated_row(name, tag, leaf,
                               "ssw_tpu_torch/csrc/" + source))
 
@@ -1987,10 +2048,8 @@ def phase_timing(torch, dev, rec, worst, launches, gated_launches, clock_mhz,
         fo = lambda a, **k: cuda_sw.forward_shared_gated(*a, **kw, **k)
         fb = lambda a: cuda_sw.forward_shared(*a, **kw)
         ms, base_ms = in_turns(torch, lambda: fo(sl), lambda: fb(base), 3)
-        wave = "_i16" in name
-        if wave:
-            _, scan_ms = in_turns(torch, lambda: fo(sl),
-                                  lambda: fo(sl, scan_body=True), 3)
+        _, scan_ms = in_turns(torch, lambda: fo(sl),
+                              lambda: fo(sl, scan_body=True), 3)
         t0 = time.perf_counter()
         want = scan_sw.forward_shared_ref_gated(*sl)
         torch.cuda.synchronize()
@@ -2011,11 +2070,10 @@ def phase_timing(torch, dev, rec, worst, launches, gated_launches, clock_mhz,
             "max_abs_err": max(err, worst[name]), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None, "base_mode_ms": base_ms,
+            "scan_body_ms": scan_ms,
             "shape": f"B={B} L={L} R={cols} quirk={bool(quirk)} phase {t}"
                      + (" (column slice of the shard)" if cols < R else ""),
         }
-        if wave:
-            row["scan_body_ms"] = scan_ms
         if cols < R:
             bl = (prof, ref, rl, cm, seg, ss, gapO, gapE, quirk)
             own_ms, basemode_ms = in_turns(torch, lambda: fo(args),
@@ -2025,23 +2083,24 @@ def phase_timing(torch, dev, rec, worst, launches, gated_launches, clock_mhz,
                 "bound_ms": shared_bound(name, prof, cm, R, quirk,
                                          extra_bytes=5 * R)[0],
                 "shape": f"B={B} L={L} R={R} (halo + C)"}
-            if wave:
-                row["shard"]["wave_ms"], row["shard"]["scan_body_ms"] = \
-                    in_turns(torch, lambda: fo(args),
-                             lambda: fo(args, scan_body=True), 1)
+            row["shard"]["wave_ms"], row["shard"]["scan_body_ms"] = \
+                in_turns(torch, lambda: fo(args),
+                         lambda: fo(args, scan_body=True), 1)
         return row
 
     rows.append(owned_row("forward_shared_i16_owned",
                           "ssw_tpu_torch/csrc/sw_wave_i16.cu", tag="5e"))
     rows.append(owned_row("forward_shared_owned",
-                          "ssw_tpu_torch/csrc/sw_forward.cu"))
+                          "ssw_tpu_torch/csrc/sw_wave_i32.cu"))
 
     # forward_perread at the recorded reverse pass of config 4
     args, kw, _ = call("forward_perread", "5")
     prof, refw, rl, cm, seg, ss, gapO, gapE, quirk = args
     B, n1, L = prof.shape
     W = refw.shape[1]
-    ms = time_ms(torch, lambda: cuda_sw.forward_perread(*args, **kw), 20)
+    fr = lambda a, **k: cuda_sw.forward_perread(*a, **kw, **k)
+    ms, scan_ms = in_turns(torch, lambda: fr(args),
+                           lambda: fr(args, scan_body=True), 20)
     t0 = time.perf_counter()
     want = scan_sw.forward_perread_ref(*args, **kw)
     torch.cuda.synchronize()
@@ -2065,21 +2124,22 @@ def phase_timing(torch, dev, rec, worst, launches, gated_launches, clock_mhz,
     b_ms, b_by = bound(opc * cells, nbytes)
     row = {
         "name": "forward_perread", "route": "cuda",
-        "source": "ssw_tpu_torch/csrc/sw_perread.cu",
+        "source": "ssw_tpu_torch/csrc/sw_wave_perread.cu",
         "replaces": "ssw_tpu/ops/pallas_sw.py:819 (_perread_kernel; "
                     "pallas_call at :963)",
         "launches": launches["forward_perread"],
         "max_abs_err": max(err, worst["forward_perread"]),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None,
+        "library_ms": None, "scan_body_ms": scan_ms,
         "shape": f"B={B} L={L} W={W} terminate={term is not None}",
     }
     # the streaming scan's first window re-run on the 10 Mbp target
     # (emit_maxcol, no terminate: every column of the window)
     args, kw, _ = call("forward_perread", "5b")
     prof, refw, rl, cm, seg, ss, gapO, gapE, quirk = args
-    row["window_rerun_ms"] = time_ms(
-        torch, lambda: cuda_sw.forward_perread(*args, **kw), 20)
+    fr = lambda a, **k: cuda_sw.forward_perread(*a, **kw, **k)
+    row["window_rerun_ms"], row["window_rerun_scan_body_ms"] = in_turns(
+        torch, lambda: fr(args), lambda: fr(args, scan_body=True), 20)
     row["window_rerun_bound_ms"] = bound(
         (cuda_sw.OPS_PER_CELL_QUIRK if quirk else cuda_sw.OPS_PER_CELL)
         * int(cm.sum()) * refw.shape[1],
@@ -2213,14 +2273,18 @@ def phase_tools_timing(torch, dev, rec, worst, launches, int32_rate,
         worst["sw_lab"] = max(worst["sw_lab"], r["max_abs_err"] or 0)
         log("  lab " + kernel_lab.format_row(r))
         table.append(r)
+    # the lab copies the column-scan body (sw_forward.cu), which ungated
+    # int32 launches reach with scan_body=True
     lab_ms, prod_ms = in_turns(
         torch, lambda: kernel_lab.run("full", leaf),
-        lambda: cuda_sw.forward_shared(*leaf, gapO, gapE, quirk), 1)
-    log(f"  lab full vs forward_shared on the whole config-4 leaf "
-        f"(B={prof.shape[0]} L={prof.shape[2]} R={R}), in turns: "
-        f"{lab_ms:.2f} vs {prod_ms:.2f} ms ({(lab_ms / prod_ms - 1) * 100:+.2f} %)")
+        lambda: cuda_sw.forward_shared(*leaf, gapO, gapE, quirk,
+                                       scan_body=True), 1)
+    log(f"  lab full vs forward_shared's column-scan body on the whole "
+        f"config-4 leaf (B={prof.shape[0]} L={prof.shape[2]} R={R}), in "
+        f"turns: {lab_ms:.2f} vs {prod_ms:.2f} ms "
+        f"({(lab_ms / prod_ms - 1) * 100:+.2f} %)")
     check(abs(lab_ms / prod_ms - 1) <= 0.03, "the lab's full is more than "
-          "3 % off the production kernel on the config-4 leaf")
+          "3 % off the production column-scan body on the config-4 leaf")
     t0 = time.perf_counter()
     want = scan_sw.forward_shared_ref(*sl, gapO, gapE, False)
     torch.cuda.synchronize()
@@ -2255,10 +2319,11 @@ def phase_tools_timing(torch, dev, rec, worst, launches, int32_rate,
 
 
 def check_designs(launches, gated, libraries):
-    """The main path's launches by library: every ungated int16-tier launch
-    ran sw_wave_i16 and every gated one sw_forward_i16; the same for the
-    packed kernel (sw_wave_packed, sw_forward_packed); the int32 kernel
-    and the per-read kernel have one library each."""
+    """The main path's launches by library: every ungated launch of each
+    forward kernel ran its wavefront (sw_wave_i32, sw_wave_i16,
+    sw_wave_packed) and every gated one its column-scan body (sw_forward,
+    sw_forward_i16, sw_forward_packed), at least one of each; every
+    per-read launch ran sw_wave_perread."""
     def split(pred):
         names = [n for n in launches if pred(n)]
         return (sum(launches[n] - gated.get(n, 0) for n in names),
@@ -2268,6 +2333,7 @@ def check_designs(launches, gated, libraries):
     int32 = split(lambda n: "_i16" not in n and "_packed" not in n
                   and n != "forward_perread")
     for what, (ungated, with_gate), wave, scan in (
+            ("int32", int32, "sw_wave_i32", "sw_forward"),
             ("int16-tier", i16, "sw_wave_i16", "sw_forward_i16"),
             ("packed", packed, "sw_wave_packed", "sw_forward_packed")):
         check(ungated > 0 and libraries[wave] == ungated,
@@ -2276,13 +2342,16 @@ def check_designs(launches, gated, libraries):
         check(with_gate > 0 and libraries[scan] == with_gate,
               f"{with_gate} gated {what} launches, {libraries[scan]} in "
               f"{scan}")
-    check(libraries["sw_forward"] == sum(int32),
-          "int32 launches outside sw_forward")
-    check(libraries["sw_perread"] == launches["forward_perread"],
-          "per-read launches outside sw_perread")
-    log(f"  designs: int16 tier {i16[0]} ungated launches in sw_wave_i16, "
-        f"{i16[1]} gated in sw_forward_i16; packed {packed[0]} in "
-        f"sw_wave_packed, {packed[1]} in sw_forward_packed")
+    per = launches["forward_perread"]
+    check(per > 0 and libraries["sw_wave_perread"] == per
+          and libraries["sw_perread"] == 0,
+          f"{per} per-read launches, {libraries['sw_wave_perread']} in "
+          f"sw_wave_perread")
+    log(f"  designs: int32 {int32[0]} ungated launches in sw_wave_i32, "
+        f"{int32[1]} gated in sw_forward; int16 tier {i16[0]} in "
+        f"sw_wave_i16, {i16[1]} in sw_forward_i16; packed {packed[0]} in "
+        f"sw_wave_packed, {packed[1]} in sw_forward_packed; per-read {per} "
+        f"in sw_wave_perread")
 
 
 # ---------------------------------------------------------------------- main

@@ -15,8 +15,10 @@ the packed kernel on the same reads packed at 1024 lanes (blockmax mode,
 the streaming leaf of config 4), and in dual mode on an Ion-like leaf
 (1024 reads of 120-176 bp from the same genome, 1 % substitutions, the
 L = 192 group's slots); where the tree has the column-scan bodies beside
-the wavefront (scan_body=), those too, keyed `*_scan_body_ms`.  Trees
-without a mode time what they have.  Needs a CUDA card.
+the wavefront (scan_body=), those too, keyed `*_scan_body_ms`, and where
+it has the int32 wavefront an int32 leaf like the Ion Torrent x20 one
+(`ion_x20_int32_*`, blockmax and dual).  Trees without a mode time what
+they have.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -93,11 +95,20 @@ def _time_tree(tree: str) -> dict:
                                                         gate=thr))
             res[f"int32_quirk_{label}_ms"] = ms(True, {"gate": thr})
     scan = "scan_body" in inspect.signature(cuda_sw.forward_shared).parameters
+    wave32 = "sw_wave_i32" in _kernels.KERNELS
     if scan:
         for label, kw in (("i16", {"max_sub": 2}),
                           ("i16_bm", dict(bm, max_sub=2))):
             res[f"{label}_scan_body_ms"] = ms(False, dict(kw,
                                                           scan_body=True))
+    if wave32:
+        for label, quirk, kw in (("int32", False, {}),
+                                 ("int32_quirk", True, {}),
+                                 ("int32_bm", False, bm),
+                                 ("int32_quirk_bm", True, bm)):
+            res[f"{label}_scan_body_ms"] = ms(quirk,
+                                              dict(kw, scan_body=True))
+        res.update(_ion_x20_leaf(torch, common, cuda_sw, codes, ref))
     if hasattr(cuda_sw, "forward_shared_packed"):
         res.update(_packed_leaves(torch, common, cuda_sw, codes, ref, reads,
                                   mat, scan))
@@ -116,7 +127,46 @@ def _time_tree(tree: str) -> dict:
         if scan:
             res["i16_owned_scan_body_ms"] = ms(
                 False, {"max_sub": 2, "scan_body": True}, fn=owned)
+        if wave32:
+            res["int32_owned_scan_body_ms"] = ms(
+                False, {"scan_body": True}, fn=owned)
     return res
+
+
+def _ion_x20_leaf(torch, common, cuda_sw, codes, ref):
+    """An int32 leaf like the Ion Torrent x20 one: 117 reads of 273-304
+    bp (seed 3, 1 % substitutions) in L = 320, the default DNA penalties
+    scaled by 20 (outside the int16 tier), dual (word rows a prefix of the
+    byte rows) and blockmax over the 2^20 columns, the wavefront and the
+    column-scan body."""
+    rng = np.random.default_rng(3)
+    reads = []
+    for ln, s in zip(rng.integers(273, 305, 117),
+                     rng.integers(20000, len(codes) - 600, 117)):
+        r = codes[s:s + ln].copy()
+        m = rng.random(ln) < 0.01
+        r[m] = rng.integers(0, 4, int(m.sum()))
+        reads.append(r)
+    rl = np.array([len(r) for r in reads], np.int32)
+    mat = np.full((5, 5), -40, np.int8)
+    np.fill_diagonal(mat, 40)
+    mat[4, :] = mat[:, 4] = 0
+    L = 320
+    prof = common.build_profile(common.pad_reads(reads, L, 4), rl,
+                                common.extend_matrix(mat))
+    byte = common.batch_geometry(rl, L, word=False)
+    word = common.batch_geometry(rl, L, word=True)
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a)).cuda()
+    args = (t(prof), t(ref), t(rl), t(byte.col_mask), t(byte.seg_id),
+            t(byte.seg_start), 60, 20, False)
+    out = {}
+    for label, kw in (("bm", {}), ("dual", {"wmask": t(word.col_mask)})):
+        kw = dict(kw, blockmax=True, valid_len=len(codes))
+        for body in (False, True):
+            out[f"ion_x20_int32_{label}" + ("_scan_body" if body else "")
+                + "_ms"] = _event_ms(torch, lambda: cuda_sw.forward_shared(
+                    *args, **kw, scan_body=body), reps=1)
+    return out
 
 
 def _event_ms(torch, run, reps=3):

@@ -25,7 +25,8 @@ _PKG = os.path.dirname(_HERE)
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
 KERNELS = ("sw_forward", "sw_forward_i16", "sw_forward_packed",
-           "sw_perread", "sw_wave_i16", "sw_wave_packed")
+           "sw_perread", "sw_wave_i16", "sw_wave_packed", "sw_wave_i32",
+           "sw_wave_perread")
 TOOL_KERNELS = ("probe_swar", "probe_i16", "sw_lab")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
@@ -60,6 +61,16 @@ _SIGNATURES = {
     "sw_wave_packed": {
         "sw_wave_packed": [_P] * 6 + [_I] * 12 + [_P] * 6,
         "sw_wave_packed_scratch_per_read": [_I] * 2,
+    },
+    "sw_wave_i32": {
+        "sw_wave_shared_i32": [_P] * 6 + [_I] * 7 + [_P] * 5 + [_I]
+                              + [_P] * 3,
+        "sw_wave_shared_i32_owned": [_P] * 6 + [_I] * 7 + [_P] * 8,
+        "sw_wave_i32_scratch_per_read": [_I],
+    },
+    "sw_wave_perread": {
+        "sw_wave_perread": [_P] * 7 + [_I] * 7 + [_P] * 6,
+        "sw_wave_perread_scratch_per_read": [_I],
     },
     "sw_perread": {
         "sw_forward_perread": [_P] * 7 + [_I] * 7 + [_P] * 6,

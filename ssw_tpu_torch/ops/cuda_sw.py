@@ -1,21 +1,24 @@
 """Wrappers of the hand-written CUDA DP kernels (csrc/sw_forward.cu,
 csrc/sw_forward_i16.cu, csrc/sw_forward_packed.cu, csrc/sw_perread.cu,
-csrc/sw_wave_i16.cu, csrc/sw_wave_packed.cu).  The two forward kernels have
-a base mode (per-column maxima), a blockmax mode (per-256-column maxima,
-the streaming suboptimal scan's input), a dual mode (blockmax for both
-tiers' row masks at once) and an owned-column mode (forward_shared_gated:
-base mode with global column indices and a best-hit gate, the
-sequence-parallel shards' pass); the packed kernel runs lane-packed reads
-(ops/pack.py) in blockmax or dual mode.  Each mode of each kernel has its
-own launch count, and LIBRARY counts the launches of each library.
+csrc/sw_wave_i16.cu, csrc/sw_wave_packed.cu, csrc/sw_wave_i32.cu,
+csrc/sw_wave_perread.cu).  The two forward kernels have a base mode
+(per-column maxima), a blockmax mode (per-256-column maxima, the streaming
+suboptimal scan's input), a dual mode (blockmax for both tiers' row masks
+at once) and an owned-column mode (forward_shared_gated: base mode with
+global column indices and a best-hit gate, the sequence-parallel shards'
+pass); the packed kernel runs lane-packed reads (ops/pack.py) in blockmax
+or dual mode.  Each mode of each kernel has its own launch count, and
+LIBRARY counts the launches of each library.
 
-Two designs of the int16 tier and of the packed kernel.  A launch without
-the gate goes to the anti-diagonal wavefront (sw_wave_i16, sw_wave_packed;
-csrc/sw_wave.cuh); a gated launch, whose gate drops steps of the warp scan,
-to the column-scan body (sw_forward_i16, sw_forward_packed).  scan_body=True
-sends an ungated launch to the column-scan body too: chip_smoke.py and the
-card tests compare and time the two designs with it.  The int32 kernel has
-one design.
+Two designs of every kernel.  A launch without the gate goes to the
+anti-diagonal wavefront (sw_wave_i32, sw_wave_i16, sw_wave_packed,
+sw_wave_perread; csrc/sw_wave.cuh); a gated launch, whose gate drops steps
+of the warp scan, to the column-scan body (sw_forward, sw_forward_i16,
+sw_forward_packed).  scan_body=True sends an ungated launch to the
+column-scan body too: chip_smoke.py and the card tests compare and time
+the two designs with it.  An int32 or per-read launch with the quirk goes
+to the column-scan body where quirk_wave_exact does not hold (rows past
+16,512 at int8 scores; the pipeline makes none).
 
 Each wrapper takes the tensors of its plain twin in ops/scan_sw.py.  A
 tensor on the CPU goes to the plain version; a CUDA tensor goes to the
@@ -160,15 +163,33 @@ def _gate_args(gate, dev):
     return (ctypes.c_int * gate_mod.DEPTHS)(*thr), _steps(dev).data_ptr()
 
 
+_SHARED_ENTRY = {"sw_wave_i16": "sw_wave_shared_i16",
+                 "sw_forward_i16": "sw_forward_shared_i16",
+                 "sw_wave_i32": "sw_wave_shared_i32",
+                 "sw_forward": "sw_forward_shared"}
+
+
+def quirk_wave_exact(L: int, max_sub: int | None) -> bool:
+    """True when the wavefront's quirk (the G chain restarted at each lane
+    block, csrc/sw_wave_i32.cu) equals the column scan's prefix max biased
+    by seg_id * SEG_BUMP: with contiguous lane blocks (batch_geometry's),
+    a source in an earlier block enters the biased scan at most L *
+    max_sub - gapO - SEG_BUMP, which never wins while L * max_sub <=
+    SEG_BUMP.  max_sub None: the int8 bound 127, so L <= 16,512."""
+    return L * (127 if max_sub is None else max(int(max_sub), 0)) \
+        <= scan_sw.SEG_BUMP
+
+
 def _launch_shared(profile, ref, read_len, col_mask, seg_id, seg_start,
                    gapO, gapE, quirk, i16, blockmax=False, valid_len=None,
                    wmask=None, gate=None, idx=None, own=None,
-                   scan_body=False):
+                   scan_body=False, max_sub=None):
     """One launch of the int32 kernel, or of the int16 tier (quirk off), in
     base, blockmax or dual (wmask) mode, or in the owned-column mode (idx,
     own; base mode), gated with gate=; not counted.  Returns the outputs
-    and the library that ran them: the int16 tier's wavefront without the
-    gate unless scan_body, else its column-scan body."""
+    and the library that ran them: the wavefront without the gate unless
+    scan_body (or, int32 with the quirk, outside quirk_wave_exact), else
+    the column-scan body."""
     B, n1, L, dev = _geometry_checks(profile, read_len, col_mask, seg_id,
                                      seg_start)
     R = int(ref.shape[0])
@@ -199,48 +220,31 @@ def _launch_shared(profile, ref, read_len, col_mask, seg_id, seg_start,
     outs = (score.data_ptr(), end_ref.data_ptr(), end_read.data_ptr(),
             *mode)
     thr, hist = _gate_args(gate, dev)
-    libname = ("sw_forward" if not i16 else "sw_wave_i16"
-               if gate is None and not scan_body else "sw_forward_i16")
+    wave = gate is None and not scan_body and (
+        i16 or not quirk or quirk_wave_exact(L, max_sub))
+    libname = {(True, True): "sw_wave_i16", (True, False): "sw_forward_i16",
+               (False, True): "sw_wave_i32",
+               (False, False): "sw_forward"}[(bool(i16), wave)]
     lib = _kernels.load(libname)
+    if i16:
+        head = (profile.data_ptr(), ref.data_ptr(), read_len.data_ptr(),
+                col_mask.data_ptr(), B, n1, L, R, int(gapO), int(gapE))
+        scratch = _scratch(lib, libname + "_scratch_per_pair", (B + 1) // 2,
+                           L, dev)
+    else:
+        head = (profile.data_ptr(), ref.data_ptr(), read_len.data_ptr(),
+                col_mask.data_ptr(), seg_id.data_ptr(), seg_start.data_ptr(),
+                B, n1, L, R, int(gapO), int(gapE), int(bool(quirk)))
+        scratch = _scratch(lib, libname + "_scratch_per_read", B, L, dev)
+    # each library's C entry point, its owned-column variant with "_owned";
+    # the column-scan bodies take the gate's arguments too
+    fn = getattr(lib, _SHARED_ENTRY[libname] + ("_owned" if owned else ""))
+    mid = ((*outs[:4], idx.data_ptr(), own.data_ptr()) if owned
+           else (*outs, _ptr(wmask)))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if i16:
-            head = (profile.data_ptr(), ref.data_ptr(), read_len.data_ptr(),
-                    col_mask.data_ptr(), B, n1, L, R, int(gapO), int(gapE))
-            scratch = _scratch(lib, libname + "_scratch_per_pair",
-                               (B + 1) // 2, L, dev)
-        if libname == "sw_wave_i16":
-            if owned:
-                rc = lib.sw_wave_shared_i16_owned(
-                    *head, *outs[:4], idx.data_ptr(), own.data_ptr(),
-                    _ptr(scratch), stream)
-            else:
-                rc = lib.sw_wave_shared_i16(*head, *outs, _ptr(wmask),
-                                            _ptr(scratch), stream)
-        elif i16:
-            if owned:
-                rc = lib.sw_forward_shared_i16_owned(
-                    *head, *outs[:4], idx.data_ptr(), own.data_ptr(),
-                    _ptr(scratch), thr, hist, stream)
-            else:
-                rc = lib.sw_forward_shared_i16(
-                    *head, *outs, _ptr(wmask), _ptr(scratch), thr, hist,
-                    stream)
-        else:
-            scratch = _scratch(lib, "sw_forward_scratch_per_read", B, L,
-                               dev)
-            head = (profile.data_ptr(), ref.data_ptr(), read_len.data_ptr(),
-                    col_mask.data_ptr(), seg_id.data_ptr(),
-                    seg_start.data_ptr(), B, n1, L, R, int(gapO), int(gapE),
-                    int(bool(quirk)))
-            if owned:
-                rc = lib.sw_forward_shared_owned(
-                    *head, *outs[:4], idx.data_ptr(), own.data_ptr(),
-                    _ptr(scratch), thr, hist, stream)
-            else:
-                rc = lib.sw_forward_shared(
-                    *head, *outs, _ptr(wmask), _ptr(scratch), thr, hist,
-                    stream)
+        rc = fn(*head, *mid, _ptr(scratch), *(() if wave else (thr, hist)),
+                stream)
     _raise_on(lib, rc, owned_kernel_name(i16) if owned else
               shared_kernel_name(i16, blockmax, wmask is not None))
     return (score, end_ref, end_read, maxcol), libname
@@ -312,8 +316,9 @@ def forward_shared(profile, ref, read_len, col_mask, seg_id, seg_start,
 
     gate: the bounded-radius gate's per-depth thresholds for K = L/32
     (ops/gate.py), or None; the results are the same (counted in GATED).
-    The int16 tier runs the wavefront without the gate unless scan_body,
-    else the column-scan body (counted in LIBRARY)."""
+    Both tiers run the wavefront without the gate unless scan_body (or,
+    int32 with the quirk, outside quirk_wave_exact), else the column-scan
+    body (counted in LIBRARY)."""
     i16 = i16_exact(int(profile.shape[2]), gapO, gapE, max_sub, quirk)
     name = shared_kernel_name(i16, blockmax, wmask is not None)
     if profile.device.type == "cpu":
@@ -326,7 +331,8 @@ def forward_shared(profile, ref, read_len, col_mask, seg_id, seg_start,
         _i16_parity(profile.device)
     out, lib = _launch_shared(profile, ref, read_len, col_mask, seg_id,
                               seg_start, gapO, gapE, quirk, i16, blockmax,
-                              valid_len, wmask, gate, scan_body=scan_body)
+                              valid_len, wmask, gate, scan_body=scan_body,
+                              max_sub=max_sub)
     _count(name, lib, gate)
     return out
 
@@ -360,7 +366,8 @@ def forward_shared_gated(profile, ref, idx, own, read_len, col_mask, seg_id,
         _i16_parity(profile.device)
     out, lib = _launch_shared(profile, ref, read_len, col_mask, seg_id,
                               seg_start, gapO, gapE, quirk, i16, gate=gate,
-                              idx=idx, own=own, scan_body=scan_body)
+                              idx=idx, own=own, scan_body=scan_body,
+                              max_sub=max_sub)
     _count(name, lib, gate)
     return out
 
@@ -461,10 +468,14 @@ def forward_shared_packed(profile, ref, so, sl, rl_s, flat_idx, gapO: int,
 
 def forward_perread(profile, refw, read_len, col_mask, seg_id, seg_start,
                     gapO: int, gapE: int, quirk: bool = True,
-                    terminate=None, emit_maxcol: bool = False):
+                    terminate=None, emit_maxcol: bool = False,
+                    scan_body: bool = False):
     """Forward DP over per-read windows refw (B, W) int32, with the
     terminate-at-score1 break (terminate (B,) int32, -1 = never).  Returns
-    (score, end_ref, end_read) (+ maxcol (B, W) int32 with emit_maxcol)."""
+    (score, end_ref, end_read) (+ maxcol (B, W) int32 with emit_maxcol).
+    The wavefront runs (sw_wave_perread) unless scan_body (or, with the
+    quirk, outside quirk_wave_exact), else the column-scan body
+    (sw_perread; counted in LIBRARY)."""
     if profile.device.type == "cpu":
         return scan_sw.forward_perread_ref(
             profile, refw, read_len, col_mask, seg_id, seg_start, gapO,
@@ -475,23 +486,27 @@ def forward_perread(profile, refw, read_len, col_mask, seg_id, seg_start,
     _check("refw", refw, torch.int32, (B, W), dev)
     if terminate is not None:
         _check("terminate", terminate, torch.int32, (B,), dev)
-    lib = _kernels.load("sw_perread")
+    libname = ("sw_wave_perread" if not scan_body and (
+        not quirk or quirk_wave_exact(L, None)) else "sw_perread")
+    lib = _kernels.load(libname)
     score = torch.empty(B, dtype=torch.int32, device=dev)
     end_ref = torch.empty(B, dtype=torch.int32, device=dev)
     end_read = torch.empty(B, dtype=torch.int32, device=dev)
     maxcol = (torch.empty((B, W), dtype=torch.int32, device=dev)
               if emit_maxcol else None)
-    scratch = _scratch(lib, "sw_perread_scratch_per_read", B, L, dev)
+    scratch = _scratch(lib, libname + "_scratch_per_read", B, L, dev)
+    fn = (lib.sw_wave_perread if libname == "sw_wave_perread"
+          else lib.sw_forward_perread)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.sw_forward_perread(
+        rc = fn(
             profile.data_ptr(), refw.data_ptr(), _ptr(terminate),
             read_len.data_ptr(), col_mask.data_ptr(), seg_id.data_ptr(),
             seg_start.data_ptr(), B, n1, L, W, int(gapO), int(gapE),
             int(bool(quirk)), score.data_ptr(), end_ref.data_ptr(),
             end_read.data_ptr(), _ptr(maxcol), _ptr(scratch), stream)
     _raise_on(lib, rc, "forward_perread")
-    _count("forward_perread", "sw_perread", None)
+    _count("forward_perread", libname, None)
     out = (score, end_ref, end_read)
     return out + (maxcol,) if emit_maxcol else out
 

@@ -77,20 +77,6 @@ def gate_sub_for(L: int, gapO: int, gapE: int,
     return gate_plan(L, gapO, gapE, max_sub)[0]
 
 
-def clears_noise(L: int, gapO: int, gapE: int, max_sub: int | None,
-                 pack_bound: int | None = None) -> bool:
-    """gate_plan's test of its tight tier with the switches at their
-    defaults: a scan longer than GATE_RADIUS and a threshold above the
-    noise ceiling NOISE_CEIL_PER_SUB * max_sub.  Where it holds, a read's
-    masked column max sits under the card's depth-0 or depth-1 threshold
-    on most columns."""
-    if max_sub is None:
-        return False
-    eff = L if pack_bound is None else min(L, pack_bound)
-    return (GATE_RADIUS < eff and gapO + (GATE_RADIUS - 1) * gapE
-            - UNROLL * max_sub > NOISE_CEIL_PER_SUB * max_sub)
-
-
 def _finish(thr):
     """Non-decreasing thresholds (a column that clears depth m's also takes
     no deeper one), or None when no depth is enabled."""

@@ -309,52 +309,32 @@ DUAL: bool | None = None
 
 
 # The bounded-radius gate (ops/gate.py) on the forward launches.  GATE
-# chooses its thresholds: None applies _gate_rule (the H100's), True the
-# JAX package's gate_plan (its Pallas path, SSW_TPU_GATESCAN as
-# gate.GATESCAN says), "tiers" the card's tiers on every launch (what the
-# rule takes where it gates), False never gates.  Outputs do not depend on
-# it.
+# chooses its thresholds: None is the card's rule, which gates no launch;
+# True the JAX package's gate_plan (its Pallas path, SSW_TPU_GATESCAN as
+# gate.GATESCAN says), "tiers" the card's tiers (gate.card_thresholds) on
+# every launch, False never gates.  Outputs do not depend on it.
+#
+# Why the card's rule gates nothing: the gate drops steps of the warp
+# scan, which only the column-scan bodies have, so a gated launch runs the
+# column-scan design, and every ungated launch runs the anti-diagonal
+# wavefront, which has no scan to drop.  Gated scan against the ungated
+# wavefront in turns on one card (NVIDIA H100 80GB HBM3, 700.00 W;
+# PERF.md §6; chip_smoke.py phase 6, leaf_timing.py): int16 and packed,
+# the Ion Torrent headline at -m1 -x3 -o5 -e2 6.443 / 6.378 s gated
+# against 3.175 s, the gated leaves 2.2-3.0x the wavefront's; int32, the
+# Ion Torrent x20 leaves of phase 5c 1,759.37 against 867.56 ms (dual)
+# and 1,454.09 against 704.58 ms (blockmax), the config-4 blockmax leaf
+# 267.38 ms with the card's tiers and 186.53 ms with every column forced
+# to depth 0 (the most the gate can save) against 99.15 ms.
 GATE: bool | str | None = None
 
 
-def _gate_rule(K: int, span: int, L: int, gapO: int, gapE: int,
-               max_sub: int, quirk: bool, pack_bound: int | None):
-    """GATE = None on the H100: no gate for a packed launch or one of the
-    int16 tier, which run the anti-diagonal wavefront ungated; for the
-    int32 kernel the card's tiers (gate.card_thresholds, lag 1) where the
-    JAX plan's noise test passes (gate.clears_noise) and the quirk is off,
-    else no gate.
-
-    The gate drops steps of the warp scan, which only the column-scan
-    bodies have, so a gated packed or int16 launch runs the column-scan
-    design.  Gated scan against the ungated wavefront in turns on one card
-    (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6; chip_smoke.py): the Ion
-    Torrent headline at -m1 -x3 -o5 -e2 (phase 5d, where the rule gated
-    before the wavefront) 6.443 and 6.378 s with the gate against 3.175 s
-    without; leaves (phase 6) packed dual there 1,383.91 against 629.42 ms,
-    packed dual at default penalties 1,315.06 against 491.38 ms, the int16
-    dual leaf 1,875.73 against 735.08 ms, the config-4 packed leaf with
-    the card's tiers 266.70 against 89.95 ms.  For the int32 kernel the
-    earlier measurements stand: where nearly every column takes depth 0 the
-    gate pays (phase 5d: 6.564 and 6.495 s against 8.432 s); at default DNA
-    penalties most columns take depth 3 and it pays nothing (config-4
-    int32 blockmax leaf 269.4 against 274.3 ms, leaf_timing.py); with the
-    quirk, whose own scan is never gated, it loses (408.8 against 291.6
-    ms)."""
-    if pack_bound is not None or cuda_sw.i16_exact(L, gapO, gapE, max_sub,
-                                                   quirk):
-        return None
-    if quirk or not gate.clears_noise(L, gapO, gapE, max_sub, pack_bound):
-        return None
-    return gate.card_thresholds(K, span, gapO, gapE, max_sub)
-
-
-def _gate(L: int, gapO: int, gapE: int, max_sub: int, quirk: bool,
+def _gate(L: int, gapO: int, gapE: int, max_sub: int,
           slot_max: int | None = None):
     """Thresholds for a forward launch over rows of L lanes (packed: rows
     of L lanes whose longest slot is slot_max, one warp of
     pack.packed_lanes(slot_max) lanes per slot), or None."""
-    if GATE is False:
+    if GATE is None or GATE is False:
         return None
     if slot_max is None:
         K, span, bound = L // 32, L, None
@@ -363,9 +343,7 @@ def _gate(L: int, gapO: int, gapE: int, max_sub: int, quirk: bool,
         span, bound = slot_max, pack.pack_bound(slot_max)
     if GATE == "tiers":
         return gate.card_thresholds(K, span, gapO, gapE, max_sub)
-    if GATE:
-        return gate.plan_thresholds(K, L, gapO, gapE, max_sub, bound)
-    return _gate_rule(K, span, L, gapO, gapE, max_sub, quirk, bound)
+    return gate.plan_thresholds(K, L, gapO, gapE, max_sub, bound)
 
 
 def _slot_len(read_len, col_word):
@@ -709,7 +687,7 @@ def _leaf_start(req: BatchRequest, dev, streaming: bool):
     # tier's channel instead of re-running might-but-didn't reads
     # (might is all False with the quirk or a word-tier request)
     dual = st.dual = bool(streaming and DUAL is not False and might.any())
-    st.gate = _gate(L, req.gapO, req.gapE, max_sub, quirk)
+    st.gate = _gate(L, req.gapO, req.gapE, max_sub)
     col_word = np.zeros(B, bool) if dual else np.full(B, word_tier) | might
     if _counter is not None:
         _counter.add_pairs(read_len, ref_len)
@@ -736,8 +714,7 @@ def _leaf_start(req: BatchRequest, dev, streaming: bool):
             _to(dev, (plan.row * plan.S + plan.slot)[:B].astype(np.int32)),
             req.gapO, req.gapE, max_sub=max_sub, valid_len=ref_len,
             quirk=quirk, word=bool(word_tier), dual=dual, slot_max=slot_max,
-            gate=_gate(plan.L, req.gapO, req.gapE, max_sub, quirk,
-                       slot_max))
+            gate=_gate(plan.L, req.gapO, req.gapE, max_sub, slot_max))
     elif dual:
         profile, cm_d, seg_d, ss_d = _prep_device(
             st.reads_d, st.rl_d, st.mat_ext_d, _to(dev, col_word), L,
@@ -1163,7 +1140,7 @@ def align_batch_sharded(req: BatchRequest, mesh, device=None) -> list:
     reads_d = _to(dev, reads_padded, torch.int8)
     rl_d = _to(dev, read_len)
     ml_d = _to(dev, ml)
-    gate_thr = _gate(L, req.gapO, req.gapE, max_sub, quirk)
+    gate_thr = _gate(L, req.gapO, req.gapE, max_sub)
     if _counter is not None:
         _counter.add_pairs(read_len[:B], ref_len)
 

@@ -178,3 +178,40 @@ def shared_case(dev, *, B, L, R, mat, word, seed):
     t = lambda a: torch.as_tensor(np.ascontiguousarray(a)).to(dev)
     return (t(prof), t(ref), t(read_len), t(geo.col_mask), t(geo.seg_id),
             t(geo.seg_start)), reads, ref
+
+
+def terminate_case(dev, *, mat, word, seed, gapO=3, gapE=1, quirk=True,
+                   L=64):
+    """The per-read kernel's terminate rule by hand: one read, the segment
+    seg + seg + 10 random codes (two rows tie at the column ending the
+    repeat), against a window that holds seg, then seg + seg, then the
+    whole read, with random codes between.  Its column maxima climb along
+    each exact diagonal, so the column after almost every column holds a
+    higher maximum, and values repeat across the three copies.  The read
+    is repeated once per terminate value: -1, every distinct column
+    maximum of the window (from the plain version at gapO, gapE, quirk)
+    and one above them all.
+    Returns (forward_perread's six tensors, terminate (B,) int32)."""
+    from ssw_tpu_torch.ops import scan_sw
+
+    rng = np.random.default_rng(seed)
+    n = mat.shape[0] - 1
+    rnd = lambda k: rng.integers(0, n, k).astype(np.int32)
+    seg = rnd(12)
+    read = np.concatenate([seg, seg, rnd(10)])
+    window = np.concatenate([rnd(9), seg, rnd(7), seg, seg, rnd(5), read,
+                             rnd(11)])
+    rl = np.array([len(read)], np.int32)
+    prof = common.build_profile(common.pad_reads([read], L, n), rl,
+                                common.extend_matrix(mat))
+    geo = common.batch_geometry(rl, L, word=word)
+    one = tuple(torch.as_tensor(np.ascontiguousarray(a)) for a in (
+        prof, window[None], rl, geo.col_mask, geo.seg_id, geo.seg_start))
+    mc = scan_sw.forward_perread_ref(*one, gapO, gapE, quirk,
+                                     emit_maxcol=True)[3]
+    vals = sorted(set(mc[0].tolist()))
+    terms = np.array([-1] + vals + [vals[-1] + 1], np.int32)
+    B = len(terms)
+    args = tuple(x.expand(B, *x.shape[1:]).contiguous().to(dev)
+                 for x in one)
+    return args, torch.as_tensor(terms).to(dev)

@@ -2,12 +2,15 @@
 part removed or changed, to see where its cycles go.
 
 The port of the JAX package's TPU lab tools/kernel_lab.py.  The kernel is
-csrc/sw_lab.cu, a copy of the production base-mode body (sw_forward.cu,
-quirk off) with one compile-time switch per variant; the production
-kernels are untouched.  Variants and what each is compared with:
+csrc/sw_lab.cu, a copy of the production column-scan base-mode body
+(sw_forward.cu, quirk off: the body of every gated int32 launch, and of
+an ungated one with scan_body=True) with one compile-time switch per
+variant; the production kernels are untouched.  Variants and what each is
+compared with:
 
-  full        the production body: exactly cuda_sw.forward_shared (int32,
-              quirk off) and the plain twin
+  full        the production column-scan body: exactly
+              cuda_sw.forward_shared(scan_body=True) (int32, quirk off)
+              and the plain twin
   nostore     no per-32-column maxcol store: score and ends
   notrack     no column reduce, best-hit branch or save_best: the final
               H and E rows
@@ -306,19 +309,19 @@ def reference(variant, args, gapO=GAPO, gapE=GAPE, m=None, gate=None,
               twin=True) -> dict | None:
     """What `variant` is compared with (the module docstring's table): its
     plain twin, or with twin=False only the comparisons a kernel run gives
-    (full against the production kernel; noclamp, radix4 and gatescan's
-    outputs against full; lanetrack against the production blockmax mode),
+    (full against the production column-scan body; noclamp, radix4 and
+    gatescan's outputs against full; lanetrack against its blockmax mode),
     None when there is none."""
     on_card = args[0].device.type == "cuda"
     names = ("score", "end_ref", "end_read", "maxcol")
     if variant == "skeleton":
         return None
     if variant == "full" and on_card and not twin:
-        return dict(zip(names, cuda_sw.forward_shared(*args, gapO, gapE,
-                                                      False)))
+        return dict(zip(names, cuda_sw.forward_shared(
+            *args, gapO, gapE, False, scan_body=True)))
     if variant == "lanetrack" and not twin:
         return dict(zip(names[:3] + ("blockmax",), cuda_sw.forward_shared(
-            *args, gapO, gapE, False, blockmax=True)))
+            *args, gapO, gapE, False, blockmax=True, scan_body=True)))
     if variant in ("noclamp", "radix4", "gatescan") and not twin:
         return run("full", args, gapO, gapE)
     if not twin:

@@ -395,8 +395,9 @@ def test_forward_shared_packed_gated_kernel_equals_plain(card, dual):
 
 
 def test_gated_pipeline_on_card_equals_cpu(card, monkeypatch):
-    """-m1 -x3 -o5 -e2, streaming, packed, dual: the card's gate on the
-    card against no gate on the CPU."""
+    """-m1 -x3 -o5 -e2, streaming, packed, dual: the card's gate tiers
+    (GATE = "tiers"; the card's rule gates no launch) on the card against
+    no gate on the CPU."""
     rng = np.random.default_rng(33)
     ref = rng.integers(0, 4, 2048).astype(np.int8)
     reads = []
@@ -410,6 +411,7 @@ def test_gated_pipeline_on_card_equals_cpu(card, monkeypatch):
                                 mask_len=[max(len(r) // 2, 15)
                                           for r in reads])
     monkeypatch.setattr(pipeline, "STREAM_SUBOPT", True)
+    monkeypatch.setattr(pipeline, "GATE", "tiers")
     cuda_sw.reset_launches()
     got = pipeline.align_batch(req)
     assert cuda_sw.gated_counts()["forward_shared_packed_dual"] == 1
@@ -565,6 +567,91 @@ def test_wave_packed_kernel_equals_plain_and_scan_body(card, W, lens, mat,
     _equal(got, scan_sw.forward_shared_ref_packed(*packed, 3, 1, **kw))
     _equal(got, cuda_sw.forward_shared_packed(*packed, 3, 1, scan_body=True,
                                               **kw))
+
+
+@pytest.mark.parametrize("mode,quirk", [
+    ("base", False), ("base", True), ("blockmax", False), ("blockmax", True),
+    ("dual", False), ("owned", False), ("owned", True),
+])
+@pytest.mark.parametrize("L,B", [(64, 36), (448, 23), (1024, 9), (96, 11),
+                                 (1088, 5)])
+def test_wave_i32_kernel_equals_plain_and_scan_body(card, mode, quirk, L, B):
+    """The int32 wavefront (csrc/sw_wave_i32.cu) in every ungated mode, the
+    quirk on BLOSUM50, at register K (2, 14, 32) and global-row K (3, 34):
+    equal to its plain twin and to the column-scan body of sw_forward.cu
+    on the same inputs, and counted in LIBRARY as sw_wave_i32."""
+    R = 1500
+    mat = BLOSUM50 if quirk else dna_matrix(2, 2)
+    args = _inputs(card, B, L, R, mat, False, seed=L + B + quirk)
+    kw = {}
+    if mode in ("blockmax", "dual"):
+        kw = dict(blockmax=True, valid_len=1270)
+    if mode == "dual":
+        j = torch.arange(L, device=card)[None, :]
+        kw["wmask"] = (j < (args[2][:, None] + 7) // 8 * 8).contiguous()
+    if mode == "owned":
+        idx, own = _owned_cols(card, R, seed=L)
+        fn = lambda **k: cuda_sw.forward_shared_gated(  # noqa: E731
+            *args[:2], idx, own, *args[2:], 3, 1, quirk, **k)
+        want = scan_sw.forward_shared_ref_gated(*args[:2], idx, own,
+                                                *args[2:], 3, 1, quirk)
+    else:
+        fn = lambda **k: cuda_sw.forward_shared(  # noqa: E731
+            *args, 3, 1, quirk, **kw, **k)
+        want = scan_sw.forward_shared_ref(*args, 3, 1, quirk, **kw)
+    before = cuda_sw.library_counts()
+    got = fn()
+    after = cuda_sw.library_counts()
+    assert after["sw_wave_i32"] == before["sw_wave_i32"] + 1
+    assert after["sw_forward"] == before["sw_forward"]
+    _equal(got, want)
+    _equal(got, fn(scan_body=True))
+    assert cuda_sw.library_counts()["sw_forward"] == after["sw_forward"] + 1
+
+
+@pytest.mark.parametrize("L,quirk,emit", [
+    (128, False, False), (128, True, True), (64, False, True),
+    (448, True, False), (1088, False, True),
+])
+def test_wave_perread_kernel_equals_plain_and_scan_body(card, L, quirk,
+                                                        emit):
+    """The per-read wavefront (csrc/sw_wave_perread.cu) with terminate at
+    the score for half the reads and at a mid-window column maximum for
+    the others (later columns beat it), emit_maxcol off and on, the quirk:
+    equal to its plain twin and to sw_perread.cu's column-scan body."""
+    mat = BLOSUM50 if quirk else dna_matrix(2, 2)
+    prof, ref, rl, cm, sid, ss = _inputs(card, 29, L, 1400, mat, False,
+                                         seed=L + 5)
+    refw = torch.stack([torch.roll(ref[:300], 7 * b) for b in range(29)])
+    args = (prof, refw.contiguous(), rl, cm, sid, ss, 3, 1, quirk)
+    base = scan_sw.forward_perread_ref(*args, emit_maxcol=True)
+    term = base[0].clone()
+    term[::2] = base[3][::2, 100]
+    before = cuda_sw.library_counts()["sw_wave_perread"]
+    got = cuda_sw.forward_perread(*args, terminate=term, emit_maxcol=emit)
+    assert cuda_sw.library_counts()["sw_wave_perread"] == before + 1
+    _equal(got, scan_sw.forward_perread_ref(*args, terminate=term,
+                                            emit_maxcol=emit))
+    _equal(got, cuda_sw.forward_perread(*args, terminate=term,
+                                        emit_maxcol=emit, scan_body=True))
+
+
+@pytest.mark.parametrize("quirk,emit", [(False, False), (True, True)])
+def test_wave_perread_terminate_by_hand(card, quirk, emit):
+    """The hand-built terminate windows (tools/_common.terminate_case:
+    every distinct column maximum as terminate[b]) on the card."""
+    from ssw_tpu_torch.tools import _common as tools_common
+
+    mat = BLOSUM50 if quirk else dna_matrix(2, 2)
+    args, term = tools_common.terminate_case(card, mat=mat, word=quirk,
+                                             seed=9, quirk=quirk)
+    got = cuda_sw.forward_perread(*args, 3, 1, quirk, terminate=term,
+                                  emit_maxcol=emit)
+    _equal(got, scan_sw.forward_perread_ref(*args, 3, 1, quirk,
+                                            terminate=term,
+                                            emit_maxcol=emit))
+    _equal(got, cuda_sw.forward_perread(*args, 3, 1, quirk, terminate=term,
+                                        emit_maxcol=emit, scan_body=True))
 
 
 def test_probe_swar_kernel_equals_plain(card):

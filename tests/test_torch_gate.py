@@ -195,6 +195,37 @@ def test_thresholds(monkeypatch):
                  monkeypatch=monkeypatch) is None
 
 
+@pytest.mark.parametrize("case", [
+    "int32_o5e2_L4096", "int32_quirk_blosum", "int32_x20", "int16_default",
+    "packed_default",
+])
+def test_gate_rule_cases(case, monkeypatch):
+    """pipeline._gate by GATE for a launch of each kind: None (the card's
+    rule) gates none, not even the int32 launch at -o5 -e2 past the int16
+    bound that the rule before the int32 wavefront gated with the card's
+    tiers (where gate_plan's noise test passes); "tiers" takes the card's
+    tiers, True the JAX plan, False nothing."""
+    L, gapO, gapE, max_sub, slot_max = {
+        "int32_o5e2_L4096": (4096, 5, 2, 3, None),
+        "int32_quirk_blosum": (256, 10, 1, 15, None),
+        "int32_x20": (320, 60, 20, 40, None),
+        "int16_default": (128, 3, 1, 2, None),
+        "packed_default": (1024, 3, 1, 2, 112),
+    }[case]
+    K = (L if slot_max is None else pack.packed_lanes(slot_max)) // 32
+    span = L if slot_max is None else slot_max
+    bound = None if slot_max is None else pack.pack_bound(slot_max)
+    for forced, want in (
+            (None, None), (False, None),
+            ("tiers", gate.card_thresholds(K, span, gapO, gapE, max_sub)),
+            (True, gate.plan_thresholds(K, L, gapO, gapE, max_sub, bound))):
+        monkeypatch.setattr(pipeline, "GATE", forced)
+        assert pipeline._gate(L, gapO, gapE, max_sub, slot_max) == want
+    if case == "int32_o5e2_L4096":
+        assert gate.card_thresholds(K, span, gapO, gapE, max_sub)
+        assert not cuda_sw.i16_exact(L, gapO, gapE, max_sub, False)
+
+
 def test_col_mask_is_a_prefix():
     """The gate's sample is over col_mask lanes and is exact only if they
     are a prefix of every row: batch_geometry (both tiers), the pipeline's
@@ -496,8 +527,7 @@ def test_pipeline_gate_matches_jax(setting, capsys, monkeypatch):
         assert [_fields(w) for w in want] == [_fields(g) for g in got]
         steps = cuda_sw.gate_steps()
         # the JAX plan gates at -o5 -e2, not at defaults; the card's rule
-        # gates no packed or int16 launch (they run the wavefront), and
-        # every launch here is one of those
+        # gates no launch (every ungated launch runs the wavefront)
         gated = forced == "tiers" or (forced is True
                                       and setting != "default")
         assert (sum(steps[:5]) > 0) == gated, (forced, steps)

@@ -1,16 +1,19 @@
 """The anti-diagonal wavefront design (ssw_tpu_torch/ops/wave.py, the plain
-model of csrc/sw_wave_i16.cu and csrc/sw_wave_packed.cu) against the JAX
-package.
+model of csrc/sw_wave_i32.cu, csrc/sw_wave_i16.cu, csrc/sw_wave_packed.cu
+and csrc/sw_wave_perread.cu) against the JAX package.
 
 The model computes what the wavefront kernels compute in their order
 (anti-diagonal steps, row-sequential F and G chains, values handed lane to
 lane, per-lane best-hit trackers merged after the last step); here it is
 held field by field against ssw_tpu's scan path and its Pallas kernel in
-interpret mode (the int16 tier where the kernel chooses it, the packed
-mode), in every mode the kernels run: base, blockmax, dual, owned, packed
-slots of mixed lengths with the quirk off and on (16 and 8 lane blocks),
-ties, a best hit only in pad rows, valid_len < R, and the shape of the
-K = 14 int16 fault.  Integer DP: tolerance 0.  Inputs are made with numpy
+interpret mode (the int16 tier where the kernel chooses it, the int32
+kernel, the packed mode, the per-read kernel), in every mode the kernels
+run: base, blockmax, dual, owned, the int32 quirk on protein matrices (L
+64 to 1088), packed slots of mixed lengths with the quirk off and on (16
+and 8 lane blocks), ties, a best hit only in pad rows, valid_len < R, the
+shape of the K = 14 int16 fault, and the per-read kernel's terminate rule
+after the skew (hand-built windows whose later columns beat the terminate
+column, ties) with and without emit_maxcol.  Integer DP: tolerance 0.  Inputs are made with numpy
 from a seed.  The int16 runs also check that no intermediate leaves int16.
 """
 
@@ -22,8 +25,12 @@ import torch
 from ssw_tpu.ops import common as jax_common
 from ssw_tpu.ops import pallas_sw
 from ssw_tpu.ops import scan_sw as jax_scan
-from ssw_tpu_torch.ops import common, wave
+from ssw_tpu_torch.core.encoding import BLOSUM50, parse_matrix_file
+from ssw_tpu_torch.ops import common, cuda_sw, wave
+from ssw_tpu_torch.tools import _common as tools_common
 from ssw_tpu_torch.tools import i16_fault
+
+BLOSUM62 = parse_matrix_file("tests/data/blosum62.txt")[0]
 
 FWD = ("score", "end_ref", "end_read", "maxima")
 
@@ -296,3 +303,173 @@ def test_wave_i16_range_check_fires():
         wave.forward_shared(*(_t(a) for a in arrs), 3, 1, i16=True)
     assert int(wave.forward_shared(*(_t(a) for a in arrs), 3, 1)[0][0]) \
         == 300 * 127
+
+
+def _protein(seed, B, L, R, mat, word=False):
+    """tools/_common.shared_case's reads (every odd one cut from the
+    target, 5 % of its codes redrawn) as numpy arrays."""
+    args, _, _ = tools_common.shared_case(torch.device("cpu"), B=B, L=L,
+                                          R=R, mat=mat, word=word, seed=seed)
+    return tuple(a.numpy() for a in args)
+
+
+@pytest.mark.parametrize("mode,quirk", [
+    ("base", False), ("base", True), ("blockmax", False),
+    ("blockmax", True), ("dual", False), ("owned", False), ("owned", True),
+])
+def test_wave_i32_matches_jax(mode, quirk):
+    """The int32 wavefront (sw_wave_i32) against the scan path with the
+    quirk off (DNA) and on (BLOSUM50, byte-tier lane blocks), and, in base
+    and owned mode at L 64, the Pallas kernel's int32 path in interpret
+    mode.  The owned mode takes the shard layout (halo columns first)."""
+    L, R = 64, 290
+    if quirk:
+        mat, gapO, gapE = BLOSUM50, 3, 1
+        arrs = _protein(17 + len(mode), 6, L, R, mat)
+    else:
+        mat, gapO, gapE = _dna(), 3, 1
+        arrs = _batch(L + R + len(mode), 7, L, R, mat)
+    vl, nblk = R - 41, (R + 255) // 256
+    t = tuple(_t(a) for a in arrs)
+    if mode == "owned":
+        idx = np.arange(R, dtype=np.int32) + 700 - 96
+        own = idx >= 700
+        full = (arrs[0], arrs[1], idx, own) + arrs[2:]
+        got = wave.forward_shared_gated(*(_t(a) for a in full), gapO, gapE,
+                                        quirk)
+        _eq(jax_scan.forward_shared_ref_gated(*_jax(full), gapO, gapE,
+                                              quirk), got)
+        _eq(pallas_sw.forward_shared_ref_gated(*_jax(full), gapO, gapE,
+                                               quirk), got)
+        return
+    word = common.batch_geometry(arrs[2], L, word=True).col_mask
+    kw = {} if mode == "base" else dict(blockmax=True, valid_len=vl)
+    if mode == "dual":
+        kw["wmask"] = _t(word)
+    got = wave.forward_shared(*t, gapO, gapE, quirk, **kw)
+    want = _scan_want(arrs, gapO, gapE, quirk)
+    if mode != "base":
+        bm = _blocks(want[3], vl, nblk)
+        if mode == "dual":
+            ww = _scan_want(arrs[:3] + (word,) + arrs[4:], gapO, gapE)
+            bm = np.stack([bm, _blocks(ww[3], vl, nblk)], axis=1)
+        want = want[:3] + (bm,)
+    else:
+        _eq(pallas_sw.forward_shared_ref(*_jax(arrs), gapO, gapE, quirk),
+            got)
+    _eq(want, got)
+
+
+@pytest.mark.parametrize("L,mat,word", [
+    (448, BLOSUM62, False), (1088, BLOSUM50, True),
+], ids=["K14_blosum62", "K34_blosum50_word"])
+def test_wave_i32_quirk_long_rows(L, mat, word):
+    """The quirk's restarted G chain at K = 14 and past 1024 rows (the
+    global-row variant's width), read_len below L, against the scan path:
+    the lane blocks are 16 (byte) or 8 (word) rows of seg_len each."""
+    arrs = _protein(L, 3, L, 96, mat, word)
+    assert int(arrs[2].max()) < L
+    got = wave.forward_shared(*(_t(a) for a in arrs), 10, 1, True)
+    _eq(_scan_want(arrs, 10, 1, True), got)
+
+
+def test_wave_quirk_bound_and_contract():
+    """Where the restarted G chain equals the biased scan: contiguous lane
+    blocks (batch_geometry's) and L * max_sub <= SEG_BUMP.  The model
+    raises outside them and the wrapper's rule sends such a launch to the
+    column-scan body (quirk_wave_exact)."""
+    assert cuda_sw.quirk_wave_exact(1088, None)
+    assert cuda_sw.quirk_wave_exact(16512, None)
+    assert not cuda_sw.quirk_wave_exact(16544, None)
+    assert cuda_sw.quirk_wave_exact(16544, 15)
+    arrs = _protein(5, 2, 64, 80, BLOSUM50)
+    t = [_t(a) for a in arrs]
+    sid = t[4].clone()
+    sid[0, 40:] = 0                     # a block id that decreases
+    with pytest.raises(ValueError, match="contiguous"):
+        wave.forward_shared(*t[:4], sid, t[5], 3, 1, True)
+    ss = t[5].clone()
+    ss[0, 1] = True                     # a block start inside a block
+    with pytest.raises(ValueError, match="seg_start"):
+        wave.forward_shared(*t[:5], ss, 3, 1, True)
+    big = t[0].clone()
+    big[0, 0, 0] = 127                  # 64 * 127 is inside the bound
+    wave.forward_shared(big, *t[1:], 3, 1, True)
+
+
+def _perread(seed, B, L, W, mat, word=False):
+    """Per-read windows with the read embedded (chip_smoke.py's
+    make_perread), numpy."""
+    rng = np.random.default_rng(seed)
+    n = mat.shape[0]
+    read_len = rng.integers(max(L // 3, 2), L - 16, B).astype(np.int32)
+    reads = [rng.integers(0, n - 1, ln).astype(np.int32) for ln in read_len]
+    refw = np.full((B, W), n, np.int32)
+    for b in range(B):
+        w = int(rng.integers(W // 2, W))
+        refw[b, :w] = rng.integers(0, n - 1, w)
+        s = int(rng.integers(0, max(1, w - read_len[b])))
+        take = min(int(read_len[b]), w - s)
+        refw[b, s:s + take] = reads[b][:take]
+    prof = common.build_profile(common.pad_reads(reads, L, n), read_len,
+                                common.extend_matrix(mat))
+    geo = common.batch_geometry(read_len, L, word=word)
+    return (prof, refw, read_len, geo.col_mask, geo.seg_id, geo.seg_start)
+
+
+@pytest.mark.parametrize("quirk,term,emit", [
+    (False, "none", False), (False, "score", False), (False, "mid", True),
+    (True, "score", False), (True, "mid", False), (True, "none", True),
+])
+def test_wave_perread_matches_jax(quirk, term, emit):
+    """The per-read wavefront against the scan path's forward_perread_ref
+    and the Pallas per-read kernel in interpret mode (L 64): terminate at
+    each read's score (the reverse pass), at a column maximum a third into
+    the window (later columns beat it), or never; emit_maxcol."""
+    mat = BLOSUM50 if quirk else _dna()
+    arrs = _perread(31 + len(term) + emit, 6, 64, 150, mat)
+    t = tuple(_t(a) for a in arrs)
+    base = jax_scan.forward_perread_ref(*_jax(arrs), 3, 1, quirk,
+                                        emit_maxcol=True)
+    tv = None
+    if term == "score":
+        tv = np.asarray(base[0]).astype(np.int32)
+        tv[::3] = -1
+    elif term == "mid":
+        tv = np.asarray(base[3])[:, 50].astype(np.int32)
+    want = jax_scan.forward_perread_ref(
+        *_jax(arrs), 3, 1, quirk, emit_maxcol=emit,
+        terminate=None if tv is None else jnp.asarray(tv))
+    got = wave.forward_perread(*t, 3, 1, quirk, emit_maxcol=emit,
+                               terminate=None if tv is None else _t(tv))
+    _eq(want, got)
+    _eq(pallas_sw.forward_perread_ref(
+        *_jax(arrs), 3, 1, quirk, emit_maxcol=emit,
+        terminate=None if tv is None else jnp.asarray(tv)), got)
+
+
+@pytest.mark.parametrize("quirk,emit", [(False, False), (False, True),
+                                        (True, False), (True, True)])
+def test_wave_perread_terminate_by_hand(quirk, emit):
+    """terminate after the skew, on the hand-built windows of
+    tools/_common.terminate_case: every distinct column maximum as
+    terminate[b], so the column after the terminate column mostly holds a
+    higher maximum (the trackers of lanes 0..30 take it before lane 31
+    sees the terminate column), values tie across columns and two rows tie
+    in one column.  Exact against the scan path; the re-run fires for most
+    reads, and a read whose later columns never beat it needs none."""
+    mat = BLOSUM62 if quirk else _dna()
+    args, term = tools_common.terminate_case(
+        torch.device("cpu"), mat=mat, word=quirk, seed=3 + emit,
+        quirk=quirk)
+    arrs = tuple(a.numpy() for a in args)
+    reruns = []
+    got = wave.forward_perread(*args, 3, 1, quirk, terminate=term,
+                               emit_maxcol=emit, reruns=reruns)
+    want = jax_scan.forward_perread_ref(*_jax(arrs), 3, 1, quirk,
+                                        terminate=jnp.asarray(term.numpy()),
+                                        emit_maxcol=emit)
+    _eq(want, got)
+    B = term.numel()
+    assert 0 < len(reruns) < B
+    assert 0 not in reruns and B - 1 not in reruns  # never / above all
