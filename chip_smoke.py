@@ -38,6 +38,15 @@ Phases (any failure exits non-zero before the final line):
   4s. every golden again through dcli align + merge with the forward pass
      sharded over a mesh of [card] x 4: --mesh-seq 2 by the default rules,
      --mesh-seq 4 with GATE = "tiers"; byte-equal
+  4f. the four other front ends on the card, each with its default device:
+     api.Aligner/Filter and ssw_lib.CSsw on the reference example pair
+     (score 21, next best 8, 4=1X4=1I5=, NM 2; CSsw's NULL on a score_size
+     0 overflow), pyssw.main byte-equal to the three pyssw goldens, a
+     `python -m ssw_tpu_torch.bridge` worker without the platform variable
+     (the example pair, the batched form, a bad line; any other "error"
+     fails) equal to bridge.serve and api.align_batch in-process, and the
+     C client of bindings/c (gcc) through bridge.write_launcher's script;
+     every launch of this process in the phase in a sw_wave_* library
   5. config 4 at real size: 8192 Illumina-like 100 bp reads sampled from
      tests/data/1M.fa, -c -s -h -r, in turns: the full (B, R) suboptimal
      scan, streaming unpacked, streaming by the default rules (packed,
@@ -72,7 +81,17 @@ Phases (any failure exits non-zero before the final line):
      wall, reads/s, GCUPS, phase seconds, peak memory, launches.
   5f. two dcli align processes on the card joined by a gloo rendezvous
      (--coordinator), BASELINE config 3, merged: equal to its capture.
-     Launch counts are set to 0 before phase 4 and read after phase 5f:
+  5g. the front ends at config-4 size on phase 5's reads: api.Aligner with
+     the 1 Mbp reference set once and align_batch over the 8192 query
+     strings (of the forward-strand reads, >= 0.95 begin at the sampled
+     position), 64 of them against the first 100 kbp on the card and on
+     the CPU equal field for field; pyssw -c -s -r against phase 5's cli
+     SAM (qname, FLAG, RNAME, POS, AS, ZS equal but for strand ties, which
+     pyssw gives the reverse strand: counted); one batched request of 256
+     reads against 100k.fa to a bridge worker on the card, equal to
+     api.align_batch in-process; wall, reads/s and host seconds outside the
+     pipeline's phases of each, the median latency of one Aligner.align.
+     Launch counts are set to 0 before phase 4 and read after phase 5g:
      these are the main path, and each kernel must have run in it, each
      forward kernel with the gate too; the counts by library must show
      every ungated forward launch in the wavefront libraries, every gated
@@ -1194,6 +1213,7 @@ def phase_config4(torch, dev, scratch, n_reads, card):
     mean = {k: sum(w) / len(w) for k, w in walls.items()}
     log(f"  config4: all SAMs byte-equal ({len(outs[0])} bytes); mean walls "
         f"{json.dumps(mean)}")
+    return fq, truth, outs[0]
 
 
 def phase_target10m(torch, dev, scratch, card):
@@ -1551,6 +1571,408 @@ def phase_two_process(scratch):
     log(f"  two processes merged: byte-equal to g_54mer_100k_sam.txt "
         f"{same} ({time.perf_counter() - t0:.1f} s)")
     check(same, "two-process dcli output differs from the golden")
+
+
+# ----------------------------------------------------------- phases 4f, 5g
+
+EX_REF = "CAGCCTTTCTGACCCGGAAATCAAAATAGGCACAACAAA"  # ref: src/example.cpp
+EX_QUERY = "CTGAGCCGGTAAATC"
+PYSSW_GOLDENS = [
+    (["-c", "r1.fa", "r1_query.fq"], "g_pyssw_r1_blast.txt"),
+    (["-c", "-s", "-header", "r1.fa", "r1_query.fq"], "g_pyssw_r1_sam.txt"),
+    (["-c", "-p", "pRef.fa", "pRead.fa"], "g_pyssw_prot_blast.txt"),
+]
+FE_CPU_READS = 64          # phase 5g: reads also run with device="cpu"
+FE_CPU_REF = 100_000       # against the first bases of 1M.fa
+FE_BRIDGE_READS = 256      # phase 5g: one batched bridge request vs 100k.fa
+FE_LATENCY_CALLS = 200     # Aligner.align calls timed on the example pair
+
+
+def bridge_env():
+    """The environment a client gives the worker: no platform variable,
+    so the worker takes the card."""
+    env = dict(os.environ)
+    env.pop("SSW_TPU_BRIDGE_PLATFORM", None)
+    env.pop("PYTHONPATH", None)
+    return env
+
+
+def start_worker(err_path):
+    """A bridge worker on the card; its stderr goes to err_path (a pipe
+    nobody reads could fill and stall it)."""
+    with open(err_path, "w") as err:
+        w = subprocess.Popen(
+            [sys.executable, "-m", "ssw_tpu_torch.bridge"], cwd=ROOT,
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=err,
+            text=True, env=bridge_env())
+    w.err_path = err_path
+    return w
+
+
+def worker_err(worker):
+    with open(worker.err_path) as f:
+        return f.read()[-2000:]
+
+
+def ask(worker, line):
+    """One request line to a worker; its response line."""
+    worker.stdin.write(line + "\n")
+    worker.stdin.flush()
+    got = worker.stdout.readline()
+    if not got:
+        worker.kill()
+        worker.communicate()
+        raise SmokeFailure(f"bridge worker died: {worker_err(worker)}")
+    return got
+
+
+def stop_worker(worker):
+    """Shut the worker down, or kill it if it does not exit; returns its
+    exit code and the end of its stderr."""
+    try:
+        worker.communicate('{"op":"shutdown"}\n', timeout=60)
+    except subprocess.TimeoutExpired:
+        worker.kill()
+        worker.communicate()
+    return worker.returncode, worker_err(worker)
+
+
+def bridge_request(rid, reads, ref, mat, flag=0x0F, batch=False):
+    """A request line as the clients send it (compact JSON), gap open 3,
+    extend 1, mask length max(15, len/2) as the Java client's."""
+    from ssw_tpu_torch import bridge
+
+    def one(read, i):
+        return {"id": i, "read": [int(x) for x in read], "ref": ref,
+                "matrix": [int(x) for x in mat.reshape(-1)],
+                "n": mat.shape[0], "gap_open": 3, "gap_extend": 1,
+                "flag": flag, "mask_len": max(15, len(read) // 2)}
+    if not batch:
+        return bridge._dumps(one(reads[0], rid))
+    return bridge._dumps({"id": rid, "batch": [one(r, None) for r in reads]})
+
+
+def check_responses(label, lines, bad=()):
+    """Every response line but those at `bad` (bad-json lines) carries no
+    error; returns the parsed responses."""
+    out = []
+    for i, line in enumerate(lines):
+        if i in bad:
+            check(line.strip() == '{"error":"bad json"}',
+                  f"{label}: line {i}: {line[:200]}")
+        else:
+            check('"error"' not in line, f"{label}: {line[:2000]}")
+        out.append(json.loads(line))
+    return out
+
+
+def phase_front_ends_golden(scratch):
+    """The four front ends on the card at golden size, each with its
+    default device: Aligner/Filter and CSsw on the reference example pair,
+    pyssw.main byte-equal to the three pyssw goldens, a `python -m
+    ssw_tpu_torch.bridge` worker (no platform variable) on the example
+    pair, the batched form and a bad line, and the C client of bindings/c
+    through the launcher.  Every launch of this process in the phase runs
+    a wavefront library."""
+    from ssw_tpu_torch import api, bridge, pyssw, ssw_lib
+    from ssw_tpu_torch.core.encoding import NT_TABLE, dna_matrix
+    from ssw_tpu_torch.ops import cuda_sw
+
+    t0 = time.perf_counter()
+    # the worker reaches the card while the rest runs
+    worker = start_worker(os.path.join(scratch, "worker_4f.err"))
+    libs_before = cuda_sw.library_counts()
+    try:
+        flag, al = api.Aligner().align(EX_QUERY, EX_REF, api.Filter(),
+                                       mask_len=15)
+        got = (al.sw_score, al.sw_score_next_best, al.ref_begin, al.ref_end,
+               al.query_begin, al.query_end, al.ref_end_next_best,
+               al.mismatches, al.cigar_string, flag)
+        log(f"  Aligner example pair: {got}")
+        check(got == (21, 8, 8, 21, 0, 14, 4, 2, "4=1X4=1I5=", 0),
+              f"Aligner example pair: {got}")
+
+        def enc(s):
+            return [int(NT_TABLE[ord(c)]) for c in s]
+
+        mat = dna_matrix(2, 2)
+        flat = [int(x) for x in mat.reshape(-1)]
+        ssw = ssw_lib.CSsw("/ignored/libssw.so")
+        q, r = enc(EX_QUERY), enc(EX_REF)
+        prof = ssw.ssw_init(q, len(q), flat, 5, 2)
+        res = ssw.ssw_align(prof, r, len(r), 3, 1, 0x0F, 0, 2 ** 15, 15)
+        check(bool(res), "CSsw: NULL result on the example pair")
+        c = res.contents
+        ar = api.align(np.asarray(q), np.asarray(r), 3, 1, mat=mat)
+        got = (c.nScore, c.nScore2, c.nRefBeg, c.nRefEnd, c.nQryBeg,
+               c.nQryEnd, c.nRefEnd2, list(c.sCigar))
+        check(c.nScore == 21 and got == (
+            ar.score1, ar.score2, ar.ref_begin1, ar.ref_end1,
+            ar.read_begin1, ar.read_end1, ar.ref_end2, list(ar.cigar)),
+            f"CSsw example pair: {got} vs api.align {ar}")
+        ssw.align_destroy(res)
+        ssw.init_destroy(prof)
+        check(not res and not prof, "CSsw: destroy left the pointers set")
+        big = ssw.ssw_init(enc("A" * 200), 200, flat, 5, 0)
+        null = ssw.ssw_align(big, enc("A" * 300), 300, 3, 1, 0, 0, 2 ** 15,
+                             15)
+        check(not null, "CSsw: score_size 0 overflow did not return NULL")
+        log(f"  CSsw example pair: {got}; score_size 0 overflow: NULL")
+
+        for args, gold in PYSSW_GOLDENS:
+            out = io.StringIO()
+            rc = pyssw.main([data_path(a) for a in args], out=out,
+                            err=io.StringIO())
+            with open(os.path.join(GOLD, gold)) as f:
+                same = out.getvalue() == f.read()
+            log(f"  pyssw {gold}: rc {rc} byte-equal {same}")
+            check(rc == 0 and same, f"pyssw golden {gold} differs")
+
+        # the worker: example pair, batched form, a bad line
+        q_codes = encode_dna(EX_QUERY.encode())
+        r_codes = encode_dna(EX_REF.encode())
+        ref = [int(x) for x in r_codes]
+        reads = [q_codes, r_codes[5:30], np.random.default_rng(4).integers(0, 4, 33)]
+        lines = [bridge_request(0, reads, ref, mat, flag=1),
+                 bridge_request(1, reads, ref, mat, batch=True),
+                 "this is not json"]
+        t1 = time.perf_counter()
+        answers = [ask(worker, line) for line in lines]
+        resp = check_responses("bridge worker", answers, bad=(2,))
+        rc, err = stop_worker(worker)
+        check(rc == 0, f"bridge worker rc {rc}: {err}")
+        r0 = resp[0]["result"]
+        check((r0["score1"], r0["ref_begin1"], r0["ref_end1"],
+               r0["read_begin1"], r0["read_end1"], r0["cigar_string"]) ==
+              (21, 8, 21, 0, 14, "9M1I5M"), f"bridge example pair: {r0}")
+        inproc = io.StringIO()
+        bridge.serve(io.StringIO("\n".join(lines) + "\n"), inproc)
+        check(inproc.getvalue() == "".join(answers),
+              "bridge: the worker's responses differ from serve in-process")
+        want = [bridge._result_dict(x) for x in api.align_batch(
+            reads, r_codes, mat, 3, 1, mask_len=[max(15, len(x) // 2)
+                                             for x in reads])]
+        check(resp[1]["result"] == want,
+              "bridge: the batched form differs from api.align_batch")
+        log(f"  bridge worker (no platform variable): example pair "
+            f"{r0['cigar_string']} score {r0['score1']}, batch of "
+            f"{len(reads)} equal to api.align_batch, bad line answered; "
+            f"three requests {time.perf_counter() - t1:.2f} s")
+    finally:
+        if worker.poll() is None:
+            worker.kill()
+            worker.communicate()
+    after = cuda_sw.library_counts()
+    libs = {k: n - libs_before[k] for k, n in after.items()
+            if n != libs_before[k]}
+    check(libs.get("sw_wave_perread", 0) > 0
+          and all(k.startswith("sw_wave_") for k in libs),
+          f"front ends: launches by library {libs}")
+    log(f"  in-process launches by library: {json.dumps(libs)}")
+
+    # the C client through the launcher
+    gcc = shutil.which("gcc") or shutil.which("cc")
+    check(gcc is not None, "no C compiler for bindings/c")
+    exe = os.path.join(scratch, "example_c")
+    src = os.path.join(ROOT, "bindings", "c")
+    b = subprocess.run([gcc, "-O2", "-Wall", "-o", exe,
+                        os.path.join(src, "example_c.c"),
+                        os.path.join(src, "ssw_client.c")],
+                       capture_output=True, text=True, timeout=120)
+    check(b.returncode == 0, f"gcc bindings/c: {b.stderr[-2000:]}")
+    launcher = bridge.write_launcher(os.path.join(scratch, "launch_bridge"))
+    t1 = time.perf_counter()
+    r = subprocess.run([exe, ROOT, launcher], capture_output=True, text=True,
+                       timeout=300, env=bridge_env())
+    check(r.returncode == 0, f"C client rc {r.returncode}: "
+          f"{r.stderr[-2000:]}")
+    want = ("optimal_alignment_score: 21", "sub-optimal_alignment_score: 8",
+            "target_begin: 9", "target_end: 22", "query_begin: 1",
+            "query_end: 15", "cigar: 9M1I5M")
+    missing = [w for w in want if w not in r.stdout]
+    check(not missing, f"C client output lacks {missing}: {r.stdout}")
+    log(f"  C client through the launcher: {r.stdout.strip()!r} "
+        f"({time.perf_counter() - t1:.1f} s with the worker's start)")
+    log(f"  front ends at golden size in {time.perf_counter() - t0:.1f} s")
+
+
+def read_fastq(path):
+    names, seqs = [], []
+    with open(path) as f:
+        for i, line in enumerate(f):
+            if i % 4 == 0:
+                names.append(line[1:].split()[0])
+            elif i % 4 == 1:
+                seqs.append(line.strip())
+    return names, seqs
+
+
+def sam_fields(text, pyssw_layout=False):
+    """{qname: (FLAG, RNAME, POS, [(tag, value)] of AS and ZS)} of SAM
+    records.  pyssw breaks a reverse-strand record with qualities after
+    its QUAL (the reference's missing trailing comma): there a line
+    starting with a tab continues the record before it."""
+    import re
+
+    recs = []
+    for line in text.splitlines():
+        if line.startswith("@"):
+            continue
+        if pyssw_layout and line.startswith("\t") and recs:
+            recs[-1] += line
+        else:
+            recs.append(line)
+    out = {}
+    for rec in recs:
+        f = rec.split("\t")
+        out[f[0]] = (f[1].strip(), f[2], f[3],
+                     re.findall(r"(AS|ZS):i:(-?\d+)", rec))
+    return out
+
+
+def phase_front_ends_config4(torch, scratch, card, fq, truth, cli_sam):
+    """Phase 5's reads through the front ends on the card: api.Aligner
+    against the 1 Mbp reference (set once), the share of forward-strand
+    reads at their sampled position, 64 reads against 100 kbp on the card
+    and on the CPU equal field for field; pyssw -c -s -r against phase 5's
+    cli SAM (qname, FLAG, RNAME, POS, AS, ZS; the reverse strand wins
+    pyssw's ties); one batched bridge request of 256 reads against 100k.fa
+    to a worker on the card, equal to api.align_batch in-process.  Wall,
+    reads/s and host seconds outside the pipeline's phases of each, and
+    the latency of one Aligner.align."""
+    from ssw_tpu_torch import api, bridge, pipeline, profiling, pyssw
+    from ssw_tpu_torch.core.encoding import dna_matrix
+
+    # the worker reaches the card while the Aligner runs
+    worker = start_worker(os.path.join(scratch, "worker_5g.err"))
+    numbers = {}
+
+    def timed(label, fn, reads):
+        counter = profiling.GcupsCounter()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with pipeline.profiled(counter):
+            out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        inside = sum(counter.seconds.values())
+        numbers[label] = {
+            "card": card, "reads": reads, "wall_s": wall,
+            "reads_per_s": reads / wall,
+            "host_s_outside_phases": wall - inside,
+            "host_share": (wall - inside) / wall,
+            "phase_seconds": counter.seconds}
+        log(f"  {label} " + json.dumps(numbers[label]))
+        return out
+
+    try:
+        names, seqs = read_fastq(fq)
+        genome = load_genome().decode()
+
+        # api.Aligner: the 1 Mbp reference once, then every read
+        aligner = api.Aligner()
+        aligner.set_reference_sequence(genome)
+        flags, als = timed("Aligner.align_batch",
+                           lambda: aligner.align_batch(seqs), len(seqs))
+        fwd = [(n, a) for n, a in zip(names, als) if n.endswith("_f")]
+        share = sum(a.ref_begin == truth[n] for n, a in fwd) / len(fwd)
+        log(f"  Aligner: {len(fwd)} forward-strand reads, share at the "
+            f"sampled position {share}")
+        check(share >= 0.95, f"Aligner: only {share} of the forward reads "
+              f"begin at the sampled position")
+        near = [i for i, n in enumerate(names)
+                if truth[n] < FE_CPU_REF - 200][:FE_CPU_READS]
+        sub = [seqs[i] for i in near]
+        outs = []
+        for device in (None, "cpu"):
+            a = api.Aligner(device=device)
+            a.set_reference_sequence(genome[:FE_CPU_REF])
+            t0 = time.perf_counter()
+            f_, a_ = a.align_batch(sub)
+            outs.append((f_, [vars(x) for x in a_]))
+            log(f"  Aligner {len(sub)} reads vs {FE_CPU_REF} bp on "
+                f"{device or 'the card'}: {time.perf_counter() - t0:.2f} s")
+        check(len(sub) == FE_CPU_READS and outs[0] == outs[1],
+              "Aligner: the card's alignments differ from the CPU's")
+
+        # one Aligner.align on the example pair
+        ex = api.Aligner()
+        for _ in range(10):
+            ex.align(EX_QUERY, EX_REF)
+        lat = []
+        for _ in range(FE_LATENCY_CALLS):
+            t0 = time.perf_counter()
+            ex.align(EX_QUERY, EX_REF)
+            lat.append(time.perf_counter() - t0)
+        lat.sort()
+        numbers["Aligner.align latency"] = {
+            "card": card, "calls": FE_LATENCY_CALLS,
+            "median_ms": lat[len(lat) // 2] * 1e3,
+            "p90_ms": lat[int(len(lat) * 0.9)] * 1e3}
+        log("  Aligner.align latency (example pair) "
+            + json.dumps(numbers["Aligner.align latency"]))
+
+        # pyssw -c -s -r against phase 5's cli SAM
+        out = io.StringIO()
+        rc = timed("pyssw -c -s -r", lambda: pyssw.main(
+            ["-c", "-s", "-r", os.path.join(DATA, "1M.fa"), fq], out=out,
+            err=io.StringIO()), len(seqs))
+        check(rc == 0, f"pyssw rc {rc}")
+        ours, theirs = sam_fields(out.getvalue(), True), sam_fields(cli_sam)
+        check(list(ours) == list(theirs) == names,
+              "pyssw: SAM records differ from the reads")
+        ties = 0
+        for n in names:
+            o, t = ours[n], theirs[n]
+            if o == t:
+                continue
+            check((o[0], t[0]) == ("16", "0") and
+                  dict(o[3]).get("AS") == dict(t[3]).get("AS"),
+                  f"pyssw: {n}: {o} vs cli {t}")
+            ties += 1
+        numbers["pyssw -c -s -r"]["strand_ties"] = ties
+        log(f"  pyssw: every record's qname, FLAG, RNAME, POS, AS and ZS "
+            f"equal to the cli's but {ties} strand ties (pyssw takes the "
+            f"reverse strand)")
+
+        # one batched bridge request to the worker on the card
+        with open(os.path.join(DATA, "100k.fa"), "rb") as f:
+            ref100k = encode_dna(b"".join(
+                ln.strip() for ln in f if not ln.startswith(b">")))
+        mat = dna_matrix(2, 2)
+        ref = [int(x) for x in ref100k]
+        reads = [encode_dna(s.encode()) for s in seqs[:FE_BRIDGE_READS]]
+        t0 = time.perf_counter()
+        line = bridge_request(7, reads, ref, mat, batch=True)
+        enc_s = time.perf_counter() - t0
+        check_responses("bridge warm-up", [ask(worker, bridge_request(
+            0, reads, ref[:1000], mat))])
+        t0 = time.perf_counter()
+        answer = ask(worker, line)
+        wall = time.perf_counter() - t0
+        resp = check_responses("bridge batch", [answer])[0]
+        rc, err = stop_worker(worker)
+        check(rc == 0, f"bridge worker rc {rc}: {err}")
+        want = [bridge._result_dict(r) for r in api.align_batch(
+            reads, ref100k, mat, 3, 1, mask_len=[max(15, len(r) // 2)
+                                                 for r in reads])]
+        check(resp["id"] == 7 and resp["result"] == want,
+              "bridge: the worker's batch differs from api.align_batch")
+        numbers["bridge worker"] = {
+            "card": card, "reads": len(reads), "wall_s": wall,
+            "reads_per_s": len(reads) / wall, "request_bytes": len(line),
+            "client_encode_s": enc_s}
+        log("  bridge worker " + json.dumps(numbers["bridge worker"]))
+        inproc = io.StringIO()
+        timed("bridge serve in-process", lambda: bridge.serve(
+            io.StringIO(line + "\n"), inproc), len(reads))
+        check(inproc.getvalue() == answer, "bridge: serve in-process "
+              "differs from the worker")
+    finally:
+        if worker.poll() is None:
+            worker.kill()
+            worker.communicate()
+    return numbers
 
 
 # the phase label the recorders file each kernel call under
@@ -2409,7 +2831,7 @@ def main() -> int:
         if "--kernels-only" in sys.argv[1:]:
             log("stopped after phase 3 (--kernels-only): no result")
             return 2
-        # phases 4-5f are the main path: launch counts from 0
+        # phases 4-5g are the main path: launch counts from 0
         cuda_sw.reset_launches()
         restore = record_main_path(cuda_sw)
         try:
@@ -2444,9 +2866,15 @@ def main() -> int:
                 pipeline.GATE = None
             log(f"phase 4s done in {time.perf_counter() - t0:.1f} s")
             t0 = time.perf_counter()
+            log("phase 4f the front ends (api, ssw_lib, pyssw, bridge, the C "
+                "client) on the card at golden size:")
+            tags[0] = "4f"
+            phase_front_ends_golden(scratch)
+            log(f"phase 4f done in {time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
             log(f"phase 5 config 4: {CONFIG4_READS} reads vs 1M.fa, "
                 f"-c -s -h -r, full scan and streaming in turns:")
-            phase_config4(torch, dev, scratch, CONFIG4_READS, smi)
+            config4 = phase_config4(torch, dev, scratch, CONFIG4_READS, smi)
             log(f"phase 5 done in {time.perf_counter() - t0:.1f} s")
             t0 = time.perf_counter()
             log(f"phase 5b 10 Mbp target: {TARGET10M_READS} reads, "
@@ -2476,11 +2904,20 @@ def main() -> int:
                 "config 3:")
             phase_two_process(scratch)
             log(f"phase 5f done in {time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            log(f"phase 5g the front ends at config-4 size: {CONFIG4_READS} "
+                f"reads of phase 5:")
+            tags[0] = "5g"
+            phase_front_ends_config4(torch, scratch, smi, *config4)
+            log(f"phase 5g done in {time.perf_counter() - t0:.1f} s")
         finally:
-            rec = restore()
+            # phase 6 times the calls of phases 4-5f: the front ends add no
+            # kernel and no shape to time
+            rec = {k: v for k, v in restore().items()
+                   if k[1] not in ("4f", "5g")}
         launches = cuda_sw.launch_counts()
         gated = cuda_sw.gated_counts()
-        log(f"main-path launches (phases 4-5f): {json.dumps(launches)}; "
+        log(f"main-path launches (phases 4-5g): {json.dumps(launches)}; "
             f"with the gate: {json.dumps(gated)}")
         for name, n in launches.items():
             check(n > 0, f"{name} was not launched on the main path")

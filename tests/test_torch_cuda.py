@@ -686,3 +686,118 @@ def test_lab_variants_equal_their_comparisons(card, L, B, R):
             err = kernel_lab.verify(v, args, m=m, gate=gate)
             assert err == (None if v == "skeleton" else 0), (v, m, err)
     assert _common.LAUNCHES["sw_lab"] > before
+
+
+# -- the front ends on the card (device None), against device "cpu" --------
+
+def _wave_only(before):
+    """Every launch since `before` (cuda_sw.library_counts()) ran a
+    wavefront library."""
+    after = cuda_sw.library_counts()
+    diff = {k: n - before.get(k, 0) for k, n in after.items()
+            if n != before.get(k, 0)}
+    assert diff and all(k.startswith("sw_wave_") for k in diff), diff
+
+
+def test_front_end_api_on_card_equals_cpu(card):
+    from ssw_tpu_torch import api
+
+    rng = np.random.default_rng(21)
+    ref = "".join("ACGT"[i] for i in rng.integers(0, 4, 2000))
+    qs = [ref[s:s + ln] for s, ln in zip(rng.integers(0, 1800, 40),
+                                         rng.integers(20, 200, 40))]
+    qs += ["".join("ACGT"[i] for i in rng.integers(0, 4, 90)), ""]
+    before = cuda_sw.library_counts()
+    a = api.Aligner()
+    flag, al = a.align("CTGAGCCGGTAAATC",
+                       "CAGCCTTTCTGACCCGGAAATCAAAATAGGCACAACAAA")
+    assert (al.sw_score, al.sw_score_next_best, al.ref_begin,
+            al.cigar_string, al.mismatches, flag) == (21, 8, 8, "4=1X4=1I5=",
+                                                      2, 0)
+    a.set_reference_sequence(ref)
+    got = a.align_batch(qs, None, api.Filter(), [15, 40] * 21)
+    _wave_only(before)
+    c = api.Aligner(device="cpu")
+    c.set_reference_sequence(ref)
+    want = c.align_batch(qs, None, api.Filter(), [15, 40] * 21)
+    assert got[0] == want[0]
+    assert [vars(x) for x in got[1]] == [vars(x) for x in want[1]]
+
+
+def test_front_end_ssw_lib_on_card_equals_cpu(card):
+    from ssw_tpu_torch import ssw_lib
+    from ssw_tpu_torch.core.encoding import NT_TABLE
+
+    def enc(s):
+        return [int(NT_TABLE[ord(c)]) for c in s]
+
+    flat = [int(x) for x in dna_matrix(2, 2).reshape(-1)]
+    before = cuda_sw.library_counts()
+    out = []
+    for ssw in (ssw_lib.CSsw(), ssw_lib.CSsw(device="cpu")):
+        q, r = enc("CTGAGCCGGTAAATC"), enc(
+            "CAGCCTTTCTGACCCGGAAATCAAAATAGGCACAACAAA")
+        res = ssw.ssw_align(ssw.ssw_init(q, len(q), flat, 5, 2), r, len(r),
+                            3, 1, 0x0F, 0, 2 ** 15, 15)
+        c = res.contents
+        out.append((c.nScore, c.nScore2, c.nRefBeg, c.nRefEnd, c.nQryBeg,
+                    c.nQryEnd, c.nRefEnd2, list(c.sCigar)))
+        big = ssw.ssw_init(enc("A" * 200), 200, flat, 5, 0)
+        assert not ssw.ssw_align(big, enc("A" * 300), 300, 3, 1, 0, 0,
+                                 2 ** 15, 15)
+    _wave_only(before)
+    assert out[0] == out[1] and out[0][0] == 21
+
+
+@pytest.mark.parametrize("gold,args", [
+    ("g_pyssw_r1_blast.txt", ["-c", "r1.fa", "r1_query.fq"]),
+    ("g_pyssw_r1_sam.txt", ["-c", "-s", "-header", "r1.fa", "r1_query.fq"]),
+    ("g_pyssw_prot_blast.txt", ["-c", "-p", "pRef.fa", "pRead.fa"]),
+])
+def test_front_end_pyssw_on_card_golden(card, gold, args):
+    import io
+    import os
+
+    from ssw_tpu_torch import pyssw
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = io.StringIO()
+    rc = pyssw.main(args[:-2] + [os.path.join(here, "data", a)
+                                 for a in args[-2:]],
+                    out=out, err=io.StringIO())
+    with open(os.path.join(here, "golden", gold)) as f:
+        assert rc == 0 and out.getvalue() == f.read()
+
+
+def test_front_end_bridge_on_card_equals_cpu(card):
+    import io
+    import json
+
+    from ssw_tpu_torch import bridge
+
+    rng = np.random.default_rng(5)
+    ref = [int(x) for x in rng.integers(0, 4, 3000)]
+    mat = [int(x) for x in dna_matrix(2, 2).reshape(-1)]
+
+    def req(i, read, **kw):
+        m = {"id": i, "read": read, "ref": ref, "matrix": mat, "n": 5,
+             "gap_open": 3, "gap_extend": 1, "flag": 0x0F, "mask_len": 15}
+        m.update(kw)
+        return m
+
+    reads = [ref[s:s + 100] for s in rng.integers(0, 2900, 64)]
+    lines = [json.dumps(req(0, reads[0])), "not json",
+             json.dumps({"id": 1, "batch": [req(None, r) for r in reads]}),
+             json.dumps(req(2, reads[1][:60], score_size=0)),
+             '{"op":"shutdown"}']
+    outs = []
+    before = cuda_sw.library_counts()
+    for device in (None, "cpu"):
+        out = io.StringIO()
+        assert bridge.serve(io.StringIO("\n".join(lines) + "\n"), out,
+                            device=device) == 0
+        outs.append(out.getvalue())
+        if device is None:
+            _wave_only(before)
+    assert outs[0] == outs[1] and '"error":"bad json"' in outs[0]
+    assert outs[0].count('"error"') == 1

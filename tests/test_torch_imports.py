@@ -4,6 +4,7 @@ the default device is the CUDA card and its absence raises; a failed kernel
 build or launch raises; chip_smoke.py without a card exits non-zero and
 prints no result."""
 
+import io
 import os
 import pkgutil
 import subprocess
@@ -14,7 +15,7 @@ import pytest
 import torch
 
 import ssw_tpu_torch
-from ssw_tpu_torch import cli, pipeline
+from ssw_tpu_torch import api, bridge, cli, pipeline, pyssw, ssw_lib
 from ssw_tpu_torch.ops import _kernels, cuda_sw
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -40,7 +41,9 @@ def test_no_module_imports_jax_or_ssw_tpu():
             "ssw_tpu_torch.tools.probe_swar", "ssw_tpu_torch.tools.probe_i16",
             "ssw_tpu_torch.tools.kernel_lab",
             "ssw_tpu_torch.tools.i16_fault",
-            "ssw_tpu_torch.tools.sass_diff"} <= set(mods)
+            "ssw_tpu_torch.tools.sass_diff", "ssw_tpu_torch.api",
+            "ssw_tpu_torch.ssw_lib", "ssw_tpu_torch.pyssw",
+            "ssw_tpu_torch.bridge"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -61,11 +64,25 @@ def test_default_device_raises_without_cuda(monkeypatch):
     req = pipeline.BatchRequest(reads=[np.array([0, 1, 2, 3], np.int8)],
                                 ref=np.array([0, 1, 2, 3], np.int8),
                                 mat=np.eye(5, dtype=np.int8), gapO=3, gapE=1)
+    data = [os.path.join(ROOT, "tests", "data", f)
+            for f in ("1k.fa", "test.seq")]
+    read, ref = "CTGAGCCGGTAAATC", "CAGCCTTTCTGACCCGGAAATCAAAATAGG"
+    flat = [int(x) for x in np.eye(5, dtype=np.int8).reshape(-1)]
+    ssw = ssw_lib.CSsw()
     for call in (lambda: pipeline.align_batch(req),
                  lambda: pipeline.align_batch_launch(req),
                  lambda: pipeline.align_batch(req, device="cuda"),
-                 lambda: cli.main([os.path.join(ROOT, "tests", "data", f)
-                                   for f in ("1k.fa", "test.seq")])):
+                 lambda: cli.main(data),
+                 lambda: api.align(req.reads[0], req.ref, 3, 1, mat=req.mat),
+                 lambda: api.align_batch(req.reads, req.ref, req.mat, 3, 1),
+                 lambda: api.Aligner().align(read, ref),
+                 lambda: ssw.ssw_align(ssw.ssw_init([0, 1, 2], 3, flat, 5, 2),
+                                       [0, 1, 2, 3], 4, 3, 1, 0x0F, 0,
+                                       2 ** 15, 15),
+                 lambda: pyssw.main(data, out=io.StringIO(),
+                                    err=io.StringIO()),
+                 lambda: bridge.serve(io.StringIO("{}\n"), io.StringIO()),
+                 lambda: bridge.start()):
         with pytest.raises(RuntimeError, match="is_available"):
             call()
     assert pipeline.resolve_device("cpu").type == "cpu"
