@@ -97,7 +97,28 @@ Phases (any failure exits non-zero before the final line):
      every ungated forward launch in the wavefront libraries, every gated
      one in the column-scan libraries and every per-read launch in
      sw_wave_perread.
-  6. kernel timing at the largest shapes phases 4-5d gave each kernel,
+  5h. BASELINE config 4 at its full 100,000 reads: tools/make_data.py (run
+     unedited, as a subprocess) writes 100k_illumina1.fastq.gz from 1M.fa,
+     then ssw_tpu_torch.tools.run_config4_full (-c -s -h -r) by the default
+     rules (streaming, packed) and with STREAM_SUBOPT = False (the full
+     scan), one run each: both SAM bodies byte-equal, their SHA-256 the one
+     the JAX package's tools/run_config4_full.py recorded (BENCH.md), >= 0.95
+     of the reads at the position in their name; wall, reads/s, phase
+     seconds, host share outside the phases, peak device memory.
+  5i. BASELINE config 2 at scale: ssw_tpu_torch.tools.bench_protein's
+     workload (512 reads of 30-150 aa, 200,000 aa, BLOSUM50, -o3 -e1: the
+     quirk) with PACK 0 and 1 (non-streaming leaves: the int32 base mode),
+     and STREAM_SUBOPT = True by the card's pack rule (the packed quirk
+     path) and unpacked (the int32 blockmax mode), in turns a b c d d c b a:
+     every AlignResult equal, every launch a wavefront, each route's kernel
+     launched.  Its largest leaf is phase 6's int32 base-mode row.  Launch
+     counts are set to 0 before phase 5h and read after phase 5i: each
+     kernel of these entry points (ENTRY_KERNELS) must have run there,
+     none gated, all in the wavefront libraries.
+  6. kernel timing at the largest shapes phases 4-5d and 5i gave each
+     kernel (the int32 base mode at 5i's protein leaf, the quirk: equal to
+     its column-scan body on the whole leaf; the int16 tier's parity probe
+     cuda_sw._i16_parity at its fixed workload),
      beside the plain version and the integer-ALU bound, the wavefront
      kernels in turns against the column-scan body of the same mode on
      the same inputs (the config-4 int32, int16 base and blockmax leaves,
@@ -121,8 +142,17 @@ Phases (any failure exits non-zero before the final line):
      lab's variants in turns against full on the config-4 int32 leaf's
      slice, each held there to its plain twin and kernel-run comparisons
      (tolerance 0), and full against the production column-scan body (the
-     lab's copy) on the whole leaf (within 3 %); prints the {"kernels":
-     [...]} line
+     lab's copy) on the whole leaf (within 3 %)
+  8. `python -m ssw_tpu_torch.bench` as a user runs it (a subprocess): exit
+     0, its last line bench.py's four keys, every launch the packed
+     wavefront in the mode the pipeline takes for the leaf (the dual tier);
+     then, in this process, the timed call's inputs through the same launch
+     on the target's first SLICE_COLS columns against the plain version
+     (scan_sw.forward_shared_ref_packed), with the whole call's block
+     maxima there, and the whole call against the unpacked int32 launch of
+     the same reads in the same mode, all equal (tolerance 0); the bench's
+     times and bound join the packed kernel's row of its mode in the
+     {"kernels": [...]} line, printed last
 
 The last line of stdout is {"ok": true, "device": {...}}.  Imports nothing
 of JAX and nothing of the JAX package.
@@ -130,7 +160,6 @@ of JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
-import contextlib
 import io
 import json
 import os
@@ -145,7 +174,6 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 DATA = os.path.join(ROOT, "tests", "data")
 GOLD = os.path.join(ROOT, "tests", "golden")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
-INT32_LANES_PER_SM = 64     # INT32 lanes per SM per clock (Hopper white paper)
 CONFIG4_READS = 8192        # BASELINE config 4 cut from 100k reads (depth)
 TARGET10M_COPIES = 9        # 1M.fa + 9 mutated copies: BASELINE config 5's
                             # 10 Mbp on one card
@@ -1110,25 +1138,14 @@ def run_sam(torch, dev, target, fq, label, card, truth=None,
     from ssw_tpu_torch.ops import cuda_sw
 
     counter = profiling.GcupsCounter()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    before = cuda_sw.launch_counts()
-    gated_before = cuda_sw.gated_counts()
-    libs_before = cuda_sw.library_counts()
     cuda_sw.reset_gate_steps()
-    t0 = time.perf_counter()
-    with pipeline.profiled(counter):
-        rc, out, err = run_cli(cli, [*flags, target, fq], dev)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated(dev)
-    launches = {k: n - before[k] for k, n in cuda_sw.launch_counts().items()
-                if n != before[k]}
-    gated = {k: n - gated_before[k] for k, n in cuda_sw.gated_counts().items()
-             if n != gated_before[k]}
-    libraries = {k: n - libs_before[k]
-                 for k, n in cuda_sw.library_counts().items()
-                 if n != libs_before[k]}
+
+    def cli_run():
+        with pipeline.profiled(counter):
+            return run_cli(cli, [*flags, target, fq], dev)
+
+    (rc, out, err), win = launch_window(torch, dev, cli_run)
+    wall = win["wall_s"]
     check(rc == 0, f"{label}: cli rc {rc}: {err[-2000:]}")
     hits = total = 0
     for line in out.splitlines():
@@ -1144,8 +1161,10 @@ def run_sam(torch, dev, target, fq, label, card, truth=None,
         "reads_per_s": total / wall, "cells": counter.cells,
         "gcups_forward_phase": counter.cells / fwd_s / 1e9 if fwd_s else 0.0,
         "gcups_wall": counter.cells / wall / 1e9,
-        "phase_seconds": counter.seconds, "peak_device_bytes": peak,
-        "launches": launches, "gated": gated, "libraries": libraries,
+        "phase_seconds": counter.seconds,
+        "peak_device_bytes": win["peak_device_bytes"],
+        "launches": win["launches"], "gated": win["gated"],
+        "libraries": win["libraries"],
         "gate_steps_by_depth": cuda_sw.gate_steps(),
     }
     if truth is not None:
@@ -1157,6 +1176,30 @@ def run_sam(torch, dev, target, fq, label, card, truth=None,
               f"begin at the sampled position")
     log(f"  {label} " + json.dumps(res))
     return out, res
+
+
+def launch_window(torch, dev, fn):
+    """fn() with the launches it made (by kernel, with the gate, by
+    library), its peak device memory and its wall, which ends in a
+    synchronize."""
+    from ssw_tpu_torch.ops import cuda_sw
+
+    counts = (cuda_sw.launch_counts, cuda_sw.gated_counts,
+              cuda_sw.library_counts)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = [c() for c in counts]
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, gated, libraries = (
+        {k: n - then[k] for k, n in c().items() if n != then[k]}
+        for c, then in zip(counts, before))
+    return out, {"wall_s": wall,
+                 "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
+                 "launches": launches, "gated": gated,
+                 "libraries": libraries}
 
 
 def check_gated(label, gate_setting, res):
@@ -1975,6 +2018,154 @@ def phase_front_ends_config4(torch, scratch, card, fq, truth, cli_sam):
     return numbers
 
 
+# ------------------------------------------------------------- phases 5h, 5i
+
+# the SAM body of BASELINE config 4 at its 100,000 reads (tools/make_data.py's
+# FASTQ, -c -s -h -r vs 1M.fa), as the JAX package's
+# tools/run_config4_full.py recorded it (BENCH.md, config-4 FULL run)
+CONFIG4_FULL_SHA256 = ("3602ab95b928f9449848bfca3ed23f0c2f9b61eaa9f4227375d7"
+                       "6b82c8e01aee")
+
+
+def phase_config4_full(torch, dev, scratch, card):
+    """BASELINE config 4 at its 100,000 reads: tools/make_data.py's FASTQ
+    (run unedited, as a subprocess), then the port's run_config4_full by
+    the default rules (streaming, packed) and with STREAM_SUBOPT = False
+    (the full scan), in turns, one run each.  Both SAM bodies byte-equal,
+    their SHA-256 the JAX package's recorded one, and >= 0.95 of the reads
+    at the position in their name (@sim_<i>_<pos>_<f|r>, 0-based)."""
+    from ssw_tpu_torch import pipeline
+    from ssw_tpu_torch.tools import run_config4_full
+
+    data = os.path.join(scratch, "bench_data")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, os.path.join(ROOT, "tools",
+                                                     "make_data.py"), data],
+                       capture_output=True, text=True, timeout=600)
+    check(r.returncode == 0, f"tools/make_data.py rc {r.returncode}: "
+          f"{r.stderr[-2000:]}")
+    fq = os.path.join(data, "100k_illumina1.fastq.gz")
+    log(f"  tools/make_data.py {data}: {time.perf_counter() - t0:.1f} s; "
+        f"{r.stdout.strip()}")
+    ref = os.path.join(DATA, "1M.fa")
+    bodies, numbers = [], {}
+    for label, stream, tag in (("default rules", None, "5h"),
+                               ("full scan", False, "5h_full")):
+        tags[0] = tag
+        pipeline.STREAM_SUBOPT = stream
+        try:
+            (res, sam), win = launch_window(
+                torch, dev, lambda: run_config4_full.run(ref, fq,
+                                                         device=dev))
+        finally:
+            pipeline.STREAM_SUBOPT = None
+        check(res["rc"] == 0, f"config 4 full, {label}: rc {res['rc']}")
+        body = run_config4_full.sam_body(sam)
+        records = body.splitlines()
+        hits = 0
+        for rec_line in records:
+            f = rec_line.split("\t", 4)
+            hits += int(f[3]) - 1 == int(f[0].split("_")[2])
+        inside = sum(res["phases_s"].values())
+        res = {**win, **res, "card": card, "records": len(records),
+               "sam_body_bytes": len(body),
+               "begin_at_sampled_pos": hits / max(len(records), 1),
+               "host_s_outside_phases": res["wall_s"] - inside,
+               "host_share": (res["wall_s"] - inside) / res["wall_s"]}
+        log(f"  config4 full {label} " + json.dumps(res))
+        check(len(records) == run_config4_full.FULL_READS,
+              f"config 4 full, {label}: {len(records)} SAM records")
+        check(res["begin_at_sampled_pos"] >= 0.95,
+              f"config 4 full, {label}: only "
+              f"{res['begin_at_sampled_pos']:.4f} of the reads at their "
+              f"sampled position")
+        bodies.append(body)
+        numbers[label] = res
+    check(bodies[0] == bodies[1], "config 4 full: the streaming and full "
+          "scan SAM bodies differ")
+    sha = numbers["default rules"]["sam_body_sha256"]
+    log(f"  config4 full: both SAM bodies byte-equal "
+        f"({len(bodies[0])} bytes), sha256 {sha}, recorded "
+        f"{CONFIG4_FULL_SHA256}")
+    check(sha == CONFIG4_FULL_SHA256, "config 4 full: the SAM body's "
+          "SHA-256 differs from the JAX package's recorded one")
+    return numbers
+
+
+PROTEIN_ROUTES = {  # label: (pipeline.PACK, pipeline.STREAM_SUBOPT, tag)
+    "pack 0": (False, None, "5i0"),
+    "pack 1": (True, None, "5i1"),
+    "streaming": (None, True, "5is"),
+    "streaming unpacked": (False, True, "5isu"),
+}
+
+
+def phase_protein(torch, dev, card):
+    """BASELINE config 2 at scale, the port's bench_protein workload (512
+    reads of 30-150 aa, a 200,000-aa proteome, BLOSUM50, -o3 -e1: the
+    quirk): PACK 0 and 1 as the JAX tool runs them (these leaves do not
+    stream, so both take the int32 base mode), and STREAM_SUBOPT = True by
+    the card's pack rule (the packed quirk path) and unpacked (the int32
+    blockmax mode), in turns a b c d d c b a.  Every read's AlignResult
+    equal across routes; every forward launch in the wavefront libraries
+    (quirk_wave_exact holds at every L), the packed quirk path and the
+    int32 quirk modes each launched."""
+    from ssw_tpu_torch import pipeline, profiling
+    from ssw_tpu_torch.ops import common, cuda_sw
+    from ssw_tpu_torch.tools import bench_protein
+
+    reads, ref, mat = bench_protein.workload()
+    max_sub = int(np.abs(mat).max())
+    Ls = sorted({common.bucket_size(common.pad_total(len(r), False), 64)
+                 for r in reads})
+    check(all(cuda_sw.quirk_wave_exact(L, max_sub) for L in Ls),
+          f"the quirk wavefront is not exact at L {Ls}")
+    log(f"  {len(reads)} reads, L buckets {Ls}, proteome {len(ref)} aa, "
+        f"max_sub {max_sub}; leaf streams by the rule: "
+        f"{pipeline._use_streaming(common.bucket_size(len(ref), 256), 128)}")
+    bench_protein.run(reads, ref, mat, False, dev)  # warm
+    order = list(PROTEIN_ROUTES)
+    first, numbers = None, {k: [] for k in order}
+    for label in order + order[::-1]:
+        pack, stream, tags[0] = PROTEIN_ROUTES[label]
+        pipeline.STREAM_SUBOPT = stream
+        counter = profiling.GcupsCounter()
+        try:
+            with pipeline.profiled(counter):
+                (outs, wall), win = launch_window(
+                    torch, dev, lambda: bench_protein.run(reads, ref, mat,
+                                                          pack, dev))
+        finally:
+            pipeline.STREAM_SUBOPT = None
+        res = bench_protein.summary(pack, reads, len(ref), outs, wall)
+        inside = sum(counter.seconds.values())
+        res.update(win, card=card, route=label, wall_s=wall,
+                   phase_seconds=counter.seconds,
+                   host_s_outside_phases=wall - inside,
+                   host_share=(wall - inside) / wall)
+        log(f"  protein {label} " + json.dumps(res))
+        numbers[label].append(res)
+        got = [vars(a) for a in outs]
+        first = first or got
+        check(got == first,
+              f"protein {label}: AlignResults differ from route {order[0]}")
+        libs = res["libraries"]
+        check(not any(k in libs for k in ("sw_forward", "sw_forward_packed",
+                                          "sw_perread")),
+              f"protein {label}: a column-scan body ran: {libs}")
+        want = {"pack 0": "forward_shared", "pack 1": "forward_shared",
+                "streaming": "forward_shared_packed",
+                "streaming unpacked": "forward_shared_blockmax"}[label]
+        check(res["launches"].get(want, 0) > 0 and
+              libs.get("sw_wave_perread", 0) > 0,
+              f"protein {label}: {want} or the per-read wavefront did not "
+              f"launch: {res['launches']}")
+    log("  protein: every route's AlignResults equal; mean walls "
+        + json.dumps({k: sum(r["wall_s"] for r in v) / len(v)
+                      for k, v in numbers.items()}))
+    return numbers
+
+
 # the phase label the recorders file each kernel call under
 tags = ["3"]
 
@@ -2056,13 +2247,14 @@ def in_turns(torch, fa, fb, reps):
     return sum(ta) / 2, sum(tb) / 2
 
 
-def phase_timing(torch, dev, rec, worst, launches, gated_launches, clock_mhz,
-                 slice_cols):
+def phase_timing(torch, dev, rec, worst, launches, gated_launches,
+                 parity_launches, clock_mhz, slice_cols):
     from ssw_tpu_torch.ops import cuda_sw, scan_sw
+    from ssw_tpu_torch.tools import _common
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    int32_rate = INT32_LANES_PER_SM * sms * clock_mhz * 1e6
-    log(f"  int32 rate: {INT32_LANES_PER_SM} lanes x {sms} SMs x "
+    int32_rate = _common.int32_rate(dev, clock_mhz)
+    log(f"  int32 rate: {_common.INT32_LANES_PER_SM} lanes x {sms} SMs x "
         f"{clock_mhz} MHz = {int32_rate:.4g} op/s")
     rows = []
 
@@ -2113,13 +2305,15 @@ def phase_timing(torch, dev, rec, worst, launches, gated_launches, clock_mhz,
             in_bytes += wmask.numel()
         return bound(ops, in_bytes + out_bytes + 12 * B)
 
-    def shared_row(name, source, replaces, tag=None, leaf_turns=True):
+    def shared_row(name, source, replaces, tag=None, leaf_turns=True,
+                   leaf_equal=False):
         """forward_shared's kernel `name` at its largest main-path call (or
         its largest in phase `tag`); the plain version and the bound on a
         column slice of the same inputs when the call is too long for the
         plain version.  The wavefront is timed in turns with the
         column-scan body of the same mode on the slice and, with
-        leaf_turns, on the whole leaf."""
+        leaf_turns, on the whole leaf (with leaf_equal, held equal to it
+        there first)."""
         args, kw, t = call(name, tag)
         prof, ref, rl, cm, seg, ss, gapO, gapE, quirk = args
         B, n1, L = prof.shape
@@ -2152,6 +2346,9 @@ def phase_timing(torch, dev, rec, worst, launches, gated_launches, clock_mhz,
                      + (" (column slice of the leaf)" if cols < R else ""),
             "scan_body_ms": scan_ms,
         }
+        if cols < R and leaf_equal:
+            same_as_scan_body(f"{name} whole leaf (B={B} L={L} R={R})",
+                              fk(args), lambda: fk(args, scan_body=True))
         if cols < R and leaf_turns:
             row["leaf_ms"], row["scan_body_leaf_ms"] = in_turns(
                 torch, lambda: fk(args), lambda: fk(args, scan_body=True), 1)
@@ -2163,6 +2360,46 @@ def phase_timing(torch, dev, rec, worst, launches, gated_launches, clock_mhz,
                                                 wm)[0]
             row["leaf_shape"] = f"B={B} L={L} R={R}"
         return row, args, kw
+
+    def parity_row():
+        """The int16 tier's device parity probe (cuda_sw._i16_parity: the
+        int32 launch and both int16 designs on its fixed workload, run
+        once per process and card before the tier's first launch; its
+        launches count in cuda_sw.PARITY_LAUNCHES, read from the main
+        path), its three launches timed together."""
+        pargs = cuda_sw.i16_parity_inputs(dev)
+        designs = ((False, False), (True, False), (True, True))
+        run3 = lambda: [cuda_sw._launch_shared(*pargs, i16=i16,
+                                               scan_body=sb)[0]
+                        for i16, sb in designs]
+        ms = time_ms(torch, run3, 20)
+        t0 = time.perf_counter()
+        want = scan_sw.forward_shared_ref(*pargs)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = max(max_abs_diff(torch, got, want) for got in run3())
+        check(err == 0, f"the int16 parity probe's launches differ from "
+              f"the plain version (max_abs_err {err})")
+        prof, ref, _, cm = pargs[:4]
+        B, R = prof.shape[0], int(ref.numel())
+        cells = int(cm.sum()) * R
+        b_ms, b_by = bound(
+            (cuda_sw.OPS_PER_CELL + 2 * cuda_sw.OPS_PER_CELL_I16) * cells,
+            3 * (prof.numel() + 4 * R + 3 * cm.numel() + 4 * B
+                 + 2 * B * R + 12 * B))
+        return {
+            "name": "_i16_parity", "route": "cuda",
+            "source": "ssw_tpu_torch/ops/cuda_sw.py (_i16_parity: "
+                      "csrc/sw_wave_i32.cu, sw_wave_i16.cu, "
+                      "sw_forward_i16.cu)",
+            "replaces": "ssw_tpu/ops/pallas_sw.py:576 (_i16_supported -> "
+                        "probe; pallas_call at :598, parity :611)",
+            "launches": parity_launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "shape": f"B={B} L={prof.shape[2]} R={R}, three launches "
+                     f"(int32, int16 wavefront, int16 column-scan body) "
+                     f"once per process and card"}
 
     def base_vs_blockmax(row, name, args, base, blockmax):
         """The base and blockmax modes of one kernel on the same launch
@@ -2177,11 +2414,14 @@ def phase_timing(torch, dev, rec, worst, launches, gated_launches, clock_mhz,
             "shape": f"B={prof.shape[0]} L={prof.shape[2]} "
                      f"R={ref.numel()}"}
 
+    # base mode, int32: its largest main-path call is phase 5i's protein
+    # leaf (config 2 at scale, the quirk)
     row, _, _ = shared_row(
         "forward_shared", "ssw_tpu_torch/csrc/sw_wave_i32.cu",
         "ssw_tpu/ops/pallas_sw.py:109 (_forward_kernel, base mode, int32; "
-        "pallas_call at :557)")
+        "pallas_call at :557)", leaf_equal=True)
     rows.append(row)
+    rows.append(parity_row())
     row, c4, c4kw = shared_row(
         "forward_shared_i16", "ssw_tpu_torch/csrc/sw_wave_i16.cu",
         "ssw_tpu/ops/pallas_sw.py:109 (_forward_kernel, int16 tier: use_i16 "
@@ -2267,18 +2507,11 @@ def phase_timing(torch, dev, rec, worst, launches, gated_launches, clock_mhz,
         tables, flat_idx) read once, outputs written once."""
         prof, _, so, sl, rl_s, fi = args[:6]
         B = fi.numel()
-        sl_r = sl.flatten()[fi.long()]
-        opc = (cuda_sw.OPS_PER_CELL_QUIRK if kw.get("quirk")
-               else cuda_sw.OPS_PER_CELL)
-        ops = (opc * int(sl_r.sum()) + cuda_sw.OPS_PER_COLUMN_BLOCKMAX * B
-               ) * cols
+        per_read = lambda x: x.flatten()[fi.long()].cpu().numpy()
+        ops = cuda_sw.packed_ops(per_read(sl), per_read(rl_s), cols,
+                                 bool(kw.get("quirk")), bool(kw.get("dual")))
         nblk = (cols + scan_sw.BM - 1) // scan_sw.BM
-        out_bytes = 4 * B * nblk + 12 * B
-        if kw.get("dual"):
-            rl_r = rl_s.flatten()[fi.long()]
-            wl = torch.minimum(sl_r, (rl_r + 7) // 8 * 8)
-            ops += cuda_sw.OPS_PER_WORD_CELL_DUAL * int(wl.sum()) * cols
-            out_bytes += 4 * B * nblk
+        out_bytes = 4 * B * nblk * (2 if kw.get("dual") else 1) + 12 * B
         return bound(ops, prof.numel() + 4 * cols + 12 * so.numel() + 4 * B
                      + out_bytes)
 
@@ -2740,6 +2973,114 @@ def phase_tools_timing(torch, dev, rec, worst, launches, int32_rate,
     return rows
 
 
+# ------------------------------------------------------------------- phase 8
+
+BENCH_KEYS = ["metric", "value", "unit", "vs_baseline"]  # bench.py's line
+
+
+def phase_bench(torch, dev):
+    """`python -m ssw_tpu_torch.bench` as a user runs it: exit 0, its last
+    line bench.py's four keys with vs_baseline within 0.01 of value / 1.1
+    (both rounded from one GCUPS), its launches all of one packed kernel
+    (the mode the pipeline takes for the leaf) in sw_wave_packed.  Then,
+    in this process, the timed call's inputs (seed 1's reads) through the
+    same launch on the target's first SLICE_COLS columns against the plain
+    version on the card (outputs equal, and the whole call's block maxima
+    over those columns), and the whole call against the unpacked int32
+    launch of the same reads in the same mode (forward_shared, L 256):
+    tolerance 0 (comparisons, after the counted window).  Returns (the
+    line, the bench's other numbers, the packed kernel's name)."""
+    from ssw_tpu_torch import bench, pipeline
+    from ssw_tpu_torch.ops import common, cuda_sw, scan_sw
+
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "ssw_tpu_torch.bench"],
+                       cwd=ROOT, capture_output=True, text=True, timeout=600)
+    lines = r.stdout.strip().splitlines()
+    log(f"  python -m ssw_tpu_torch.bench: rc {r.returncode}, "
+        f"{time.perf_counter() - t0:.1f} s")
+    for ln in lines:
+        log(f"    {ln}")
+    check(r.returncode == 0 and len(lines) >= 2,
+          f"the bench failed: rc {r.returncode}: {r.stderr[-2000:]}")
+    line, info = json.loads(lines[-1]), json.loads(lines[-2])
+    check(list(line) == BENCH_KEYS and line["metric"] == "GCUPS"
+          and line["unit"] == "GCUPS" and line["value"] > 0
+          # bench.py rounds value and vs_baseline from the same GCUPS
+          and abs(line["vs_baseline"] - line["value"] / 1.1) <= 0.01,
+          f"the bench's last line is not bench.py's: {lines[-1]}")
+
+    ref = bench.make_target(bench.CARD_R)
+    leaf = bench.Leaf(ref, bench.READS, bench.READ_LEN, dev)
+    kernel = "forward_shared_packed" + ("_dual" if leaf.dual else "")
+    fwd = {k: n for k, n in info["launches"].items() if n}
+    check(info["dual"] == leaf.dual and set(fwd) == {kernel} and
+          {k: n for k, n in info["libraries"].items() if n}
+          == {"sw_wave_packed": fwd[kernel]},
+          f"the bench's launches: {info['launches']}, {info['libraries']}")
+    reads = bench.make_reads(ref, 1, bench.READS)
+    inputs = leaf.inputs(reads)
+    got = leaf.call(inputs)
+    # the plain version on a column slice: the recurrence runs left to
+    # right, so the whole call's first blocks see the same columns
+    cols = SLICE_COLS
+    head = leaf.ref_d[:cols].contiguous()
+    got_head = leaf.call(inputs, head, cols)
+    t0 = time.perf_counter()
+    want_head = scan_sw.forward_shared_ref_packed(
+        inputs[0], head, *inputs[1], bench.GAP_O, bench.GAP_E,
+        max_sub=bench.MAX_SUB, valid_len=cols, quirk=leaf.quirk,
+        dual=leaf.dual)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    nb = cols // scan_sw.BM
+    err_plain = max(max_abs_diff(torch, got_head, want_head),
+                    max_abs_diff(torch, got[3][..., :nb], want_head[3]))
+    log(f"  the timed call vs the plain version on the first {cols} "
+        f"columns ({plain_s:.1f} s), and its block maxima there: "
+        f"max_abs_err {err_plain}")
+    check(err_plain == 0, f"the bench's packed call differs from the plain "
+          f"version on the first {cols} columns (max_abs_err {err_plain})")
+    read_len = np.full(bench.READS, bench.READ_LEN, np.int32)
+    prof = common.build_profile(common.pad_reads(reads, bench.L, 5), read_len,
+                                common.extend_matrix(dna_mat(2, 2)))
+    geo = common.batch_geometry(read_len, bench.L, word=False)
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a)).to(dev)
+    want = cuda_sw.forward_shared(
+        t(prof), leaf.ref_d, t(read_len), t(geo.col_mask), t(geo.seg_id),
+        t(geo.seg_start), bench.GAP_O, bench.GAP_E, leaf.quirk,
+        blockmax=True, valid_len=bench.CARD_R,
+        wmask=(pipeline._word_mask(t(read_len), bench.L) if leaf.dual
+               else None))
+    torch.cuda.synchronize()
+    err = max_abs_diff(torch, got, want)
+    log(f"  the timed call ({kernel}) vs the unpacked int32 launch in the "
+        f"same mode on the same {bench.READS} reads: max_abs_err {err}")
+    check(err == 0, f"the bench's packed call differs from the unpacked "
+          f"int32 launch (max_abs_err {err})")
+    info["max_abs_err_vs_plain"] = err_plain
+    info["max_abs_err_vs_unpacked"] = err
+    return line, info, kernel
+
+
+ENTRY_KERNELS = ("forward_shared", "forward_shared_i16",
+                 "forward_shared_blockmax", "forward_shared_packed",
+                 "forward_perread")  # what phases 5h-5i must launch
+
+
+def check_entry_points(launches, gated, libraries):
+    """Phases 5h-5i: each kernel of their path launched, none gated, and
+    every launch in a wavefront library."""
+    for name in ENTRY_KERNELS:
+        check(launches[name] > 0, f"{name} was not launched in phases "
+              f"5h-5i")
+    check(not any(gated.values()), f"gated launches in phases 5h-5i: "
+          f"{gated}")
+    check(sum(launches.values()) == sum(
+        n for k, n in libraries.items() if k.startswith("sw_wave_")),
+          f"phases 5h-5i: launches {launches} by library {libraries}")
+
+
 def check_designs(launches, gated, libraries):
     """The main path's launches by library: every ungated launch of each
     forward kernel ran its wavefront (sw_wave_i32, sw_wave_i16,
@@ -2831,8 +3172,11 @@ def main() -> int:
         if "--kernels-only" in sys.argv[1:]:
             log("stopped after phase 3 (--kernels-only): no result")
             return 2
-        # phases 4-5g are the main path: launch counts from 0
+        # phases 4-5g are the main path: launch counts from 0, and the
+        # int16 tier's parity probe runs again, as in a fresh process,
+        # before the main path's first int16 launch
         cuda_sw.reset_launches()
+        cuda_sw._I16_CHECKED.clear()
         restore = record_main_path(cuda_sw)
         try:
             t0 = time.perf_counter()
@@ -2910,36 +3254,77 @@ def main() -> int:
             tags[0] = "5g"
             phase_front_ends_config4(torch, scratch, smi, *config4)
             log(f"phase 5g done in {time.perf_counter() - t0:.1f} s")
+            launches = cuda_sw.launch_counts()
+            gated = cuda_sw.gated_counts()
+            libraries = cuda_sw.library_counts()
+            parity = cuda_sw.parity_counts()
+            # phases 5h-5i, the measurement entry points: counts from 0
+            cuda_sw.reset_launches()
+            t0 = time.perf_counter()
+            log("phase 5h config 4 at its 100,000 reads "
+                "(tools/make_data.py), run_config4_full by both suboptimal "
+                "routes:")
+            phase_config4_full(torch, dev, scratch, smi)
+            log(f"phase 5h done in {time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            log("phase 5i config 2 at scale (bench_protein: 512 reads vs "
+                "200,000 aa, BLOSUM50, the quirk), four routes in turns:")
+            phase_protein(torch, dev, smi)
+            log(f"phase 5i done in {time.perf_counter() - t0:.1f} s")
+            entry = cuda_sw.launch_counts()
+            entry_gated = cuda_sw.gated_counts()
+            entry_libs = cuda_sw.library_counts()
         finally:
-            # phase 6 times the calls of phases 4-5f: the front ends add no
-            # kernel and no shape to time
+            # phase 6 times the calls of phases 4-5f and 5i: the front ends
+            # and 5h add no kernel and no shape to time
             rec = {k: v for k, v in restore().items()
-                   if k[1] not in ("4f", "5g")}
-        launches = cuda_sw.launch_counts()
-        gated = cuda_sw.gated_counts()
+                   if k[1] not in ("4f", "5g", "5h", "5h_full")}
         log(f"main-path launches (phases 4-5g): {json.dumps(launches)}; "
             f"with the gate: {json.dumps(gated)}")
         for name, n in launches.items():
             check(n > 0, f"{name} was not launched on the main path")
             check(name not in gated or gated[name] > 0,
                   f"{name} never ran with the gate on the main path")
-        libraries = cuda_sw.library_counts()
-        log(f"main-path launches by library: {json.dumps(libraries)}")
+        log(f"main-path launches by library: {json.dumps(libraries)}; "
+            f"parity probe: {json.dumps(parity)}")
+        check(parity["_i16_parity"] == 3, f"the int16 parity probe made "
+              f"{parity['_i16_parity']} launches on the main path, not 3")
         check_designs(launches, gated, libraries)
+        log(f"entry-point launches (phases 5h-5i): {json.dumps(entry)}; by "
+            f"library: {json.dumps(entry_libs)}")
+        check_entry_points(entry, entry_gated, entry_libs)
         t0 = time.perf_counter()
         log("phase 6 kernel timing at main-path shapes:")
         kernels = phase_timing(torch, dev, rec, worst, launches, gated,
-                               float(clock or 1980), SLICE_COLS)
+                               parity["_i16_parity"], float(clock or 1980),
+                               SLICE_COLS)
+        for row in kernels:
+            row["launches_5h_5i"] = entry.get(row["name"], 0)
+            row["launches"] += row["launches_5h_5i"]
         log(f"phase 6 done in {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         log("phase 7 the tools' entry points, then their timing:")
         tool_launches = phase_tools_path()
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        from ssw_tpu_torch.tools import _common
         kernels += phase_tools_timing(
             torch, dev, rec, worst_tools, tool_launches,
-            INT32_LANES_PER_SM * sms * float(clock or 1980) * 1e6,
-            SLICE_COLS)
+            _common.int32_rate(dev, float(clock or 1980)), SLICE_COLS)
         log(f"phase 7 done in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        log("phase 8 the bench line (python -m ssw_tpu_torch.bench):")
+        line, bench_info, bench_kernel = phase_bench(torch, dev)
+        packed = next(r for r in kernels if r["name"] == bench_kernel)
+        packed["launches_bench"] = bench_info["launches"][bench_kernel]
+        packed["launches"] += packed["launches_bench"]
+        packed["bench_leaf"] = {
+            k: bench_info[k] for k in ("timed_call_ms", "median_ms",
+                                       "calls_ms", "bound_ms", "rows", "W",
+                                       "slots", "R", "cells", "dual",
+                                       "max_abs_err_vs_plain",
+                                       "max_abs_err_vs_unpacked")}
+        packed["bench_leaf"]["line"] = line
+        log(f"  bench line: {json.dumps(line)}")
+        log(f"phase 8 done in {time.perf_counter() - t0:.1f} s")
         log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
     except SmokeFailure as e:
         log(f"FAIL: {e}")

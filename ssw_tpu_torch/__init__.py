@@ -19,6 +19,7 @@ Layers:
   pyssw      `pyssw.py`-compatible command line driver
   bridge     JSON-lines worker behind bindings/c and bindings/java
   dcli       the scale-out CLI over hosts and cards
+  bench      the GCUPS line of the root bench.py (python -m ssw_tpu_torch.bench)
 
 Entry points run on the CUDA device unless the caller passes device="cpu".
 """

@@ -69,6 +69,24 @@ OPS_PER_COLUMN_BLOCKMAX_I16 = 0.5
 OPS_PER_WORD_CELL_DUAL = 1
 OPS_PER_WORD_CELL_DUAL_I16 = 0.5
 
+
+
+def packed_ops(slot_len, read_len, cols: int, quirk: bool = False,
+               dual: bool = False) -> int:
+    """The counted operations of one forward_shared_packed launch over cols
+    columns: the recurrence over each read's slot lanes (slot_len (B,)),
+    the block running max per read and column, and with dual the word
+    channel's max per word-tier lane-cell (a slot's lanes up to its read's
+    length rounded up to 8, read_len (B,))."""
+    sl = np.asarray(slot_len, np.int64)
+    ops = ((OPS_PER_CELL_QUIRK if quirk else OPS_PER_CELL) * int(sl.sum())
+           + OPS_PER_COLUMN_BLOCKMAX * len(sl)) * cols
+    if dual:
+        wl = np.minimum(sl, (np.asarray(read_len, np.int64) + 7) // 8 * 8)
+        ops += OPS_PER_WORD_CELL_DUAL * int(wl.sum()) * cols
+    return ops
+
+
 # the int16 tier is exact while every cell and intermediate stays below
 # this bound (the JAX package's pallas_sw.I16_HEADROOM)
 I16_HEADROOM = 2 ** 14
@@ -251,19 +269,15 @@ def _launch_shared(profile, ref, read_len, col_mask, seg_id, seg_start,
 
 
 _I16_CHECKED: set = set()  # card indices where the int16 tier passed
+# launches of the int16 tier's parity probe, counted apart from LAUNCHES:
+# they check the tier and compute nothing a caller reads
+PARITY_LAUNCHES = {"_i16_parity": 0}
 
 
-def _i16_parity(dev):
-    """Before the int16 tier first runs on a card, run both of its designs
-    (the wavefront that ungated launches take and the column-scan body of
-    the gated ones) and the int32 kernel on a fixed seeded workload inside
-    the i16_exact bound and require identical outputs; raise if they
-    differ.  This is the counterpart of the JAX package's _i16_supported
-    probe, which gates its int16 tier on the same device parity check.
-    Runs once per card; its launches are comparisons and are not counted."""
-    key = dev.index if dev.index is not None else torch.cuda.current_device()
-    if key in _I16_CHECKED:
-        return
+def i16_parity_inputs(dev):
+    """The parity workload of _i16_parity on dev: forward_shared's
+    arguments (profile, ref, read_len, col_mask, seg_id, seg_start, gapO,
+    gapE, quirk) for 64 random DNA reads of 128 bp against 512 columns."""
     rng = np.random.default_rng(7)
     B, L, R = 64, 128, 512
     mat = np.full((5, 5), -2, np.int8)
@@ -273,11 +287,28 @@ def _i16_parity(dev):
     prof = common.build_profile(reads, read_len, common.extend_matrix(mat))
     geo = common.batch_geometry(read_len, L, word=False)
     t = lambda a: torch.as_tensor(np.ascontiguousarray(a)).to(dev)
-    args = (t(prof), t(rng.integers(0, 4, R).astype(np.int32)), t(read_len),
+    return (t(prof), t(rng.integers(0, 4, R).astype(np.int32)), t(read_len),
             t(geo.col_mask), t(geo.seg_id), t(geo.seg_start), 3, 1, False)
+
+
+def _i16_parity(dev):
+    """Before the int16 tier first runs on a card, run both of its designs
+    (the wavefront that ungated launches take and the column-scan body of
+    the gated ones) and the int32 kernel on a fixed seeded workload inside
+    the i16_exact bound and require identical outputs; raise if they
+    differ.  This is the counterpart of the JAX package's _i16_supported
+    probe, which gates its int16 tier on the same device parity check.
+    Runs once per card; its launches count in PARITY_LAUNCHES, not in
+    LAUNCHES."""
+    key = dev.index if dev.index is not None else torch.cuda.current_device()
+    if key in _I16_CHECKED:
+        return
+    args = i16_parity_inputs(dev)
     want, _ = _launch_shared(*args, i16=False)
+    PARITY_LAUNCHES["_i16_parity"] += 1
     for scan_body in (False, True):
         got, lib = _launch_shared(*args, i16=True, scan_body=scan_body)
+        PARITY_LAUNCHES["_i16_parity"] += 1
         if not all(torch.equal(g, w) for g, w in zip(got, want)):
             raise RuntimeError(f"the int16 tier of forward_shared ({lib}) "
                                f"disagrees with the int32 kernel on the "
@@ -512,8 +543,8 @@ def forward_perread(profile, refw, read_len, col_mask, seg_id, seg_start,
 
 
 def reset_launches():
-    """Set LAUNCHES, GATED and LIBRARY to 0."""
-    for counts in (LAUNCHES, GATED, LIBRARY):
+    """Set LAUNCHES, GATED, LIBRARY and PARITY_LAUNCHES to 0."""
+    for counts in (LAUNCHES, GATED, LIBRARY, PARITY_LAUNCHES):
         for name in counts:
             counts[name] = 0
 
@@ -528,6 +559,10 @@ def gated_counts() -> dict:
 
 def library_counts() -> dict:
     return dict(LIBRARY)
+
+
+def parity_counts() -> dict:
+    return dict(PARITY_LAUNCHES)
 
 
 def reset_gate_steps():

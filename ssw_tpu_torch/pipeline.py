@@ -409,6 +409,51 @@ def _prep_packed(codes, mat_ext):
     return mat_ext[:, codes.long()].permute(1, 0, 2).contiguous()
 
 
+def _might_overflow(read_len, score_size: int, quirk: bool, max_sub: int,
+                    bias: int) -> np.ndarray:
+    """(B,) bool: the reads whose largest possible score (read_len *
+    max|mat| + bias) could reach 255 under score_size 2, quirk off; all
+    False with the quirk or another score_size."""
+    if score_size != 2 or quirk:
+        return np.zeros(len(read_len), dtype=bool)
+    return read_len.astype(np.int64) * max_sub + bias >= 255
+
+
+def _dual_tier(might, streaming: bool) -> bool:
+    """The dual tier (streaming, quirk off): one pass with byte-tier row
+    masks emits both tiers' block maxima, and mid selects each read's final
+    tier's channel instead of re-running might-but-didn't reads (might is
+    all False with the quirk or a word-tier request)."""
+    return bool(streaming and DUAL is not False and might.any())
+
+
+def _packed_inputs(plan, reads_padded, read_len, B: int, pad_code: int,
+                   mat_ext_d):
+    """The packed forward launch's read-side inputs on mat_ext_d's device,
+    for the first B reads of the batch that `plan` packs (reads_padded,
+    read_len over that batch): the packed profile and the slot tables (so,
+    sl, rl_s, flat_idx)."""
+    dev = mat_ext_d.device
+    so, sl, rl_s = common.pack_tables(plan, read_len)
+    pprof = _prep_packed(
+        _to(dev, common.pack_codes(plan, reads_padded, pad_code),
+            torch.int8), mat_ext_d)
+    fi = (plan.row * plan.S + plan.slot)[:B].astype(np.int32)
+    return pprof, tuple(_to(dev, a) for a in (so, sl, rl_s, fi))
+
+
+def _packed_forward(plan, pprof, ref_codes, tables, gapO: int, gapE: int,
+                    max_sub: int, valid_len: int, quirk: bool, word: bool,
+                    dual: bool):
+    """The streaming leaf's one packed forward launch, with the gate the
+    rule gives the plan's longest slot."""
+    slot_max = int(plan.slot_len.max())
+    return cuda_sw.forward_shared_packed(
+        pprof, ref_codes, *tables, gapO, gapE, max_sub=max_sub,
+        valid_len=valid_len, quirk=quirk, word=word, dual=dual,
+        slot_max=slot_max, gate=_gate(plan.L, gapO, gapE, max_sub, slot_max))
+
+
 def needs_quirk(mat: np.ndarray, gapE: int) -> bool:
     """The lane-block E quirk is observable only when an adjacent
     insertion+deletion can beat the substitution it replaces, i.e. when
@@ -678,15 +723,9 @@ def _leaf_start(req: BatchRequest, dev, streaming: bool):
     # row mask up front — if it does overflow, the reference's whole word
     # rerun (ref: src/ssw.c:883-886) is already answered; only
     # might-but-didn't reads re-run, with byte rows.
-    might = np.zeros(B, dtype=bool)
-    if req.score_size == 2 and not quirk:
-        might = read_len.astype(np.int64) * max_sub + st.bias >= 255
-    st.might = might
-    # dual tier (streaming, quirk off): one pass with byte-tier row masks
-    # emits both tiers' block maxima, and mid selects each read's final
-    # tier's channel instead of re-running might-but-didn't reads
-    # (might is all False with the quirk or a word-tier request)
-    dual = st.dual = bool(streaming and DUAL is not False and might.any())
+    might = st.might = _might_overflow(read_len, req.score_size, quirk,
+                                       max_sub, st.bias)
+    dual = st.dual = _dual_tier(might, streaming)
     st.gate = _gate(L, req.gapO, req.gapE, max_sub)
     col_word = np.zeros(B, bool) if dual else np.full(B, word_tier) | might
     if _counter is not None:
@@ -704,17 +743,11 @@ def _leaf_start(req: BatchRequest, dev, streaming: bool):
                 int(plan.slot_len.max()), max_sub, req.gapO, req.gapE):
             plan = None  # the quirk's sub-slot block bias would not be exact
     if plan is not None:
-        slot_max = int(plan.slot_len.max())
-        so, sl, rl_s = common.pack_tables(plan, read_len[keep])
-        pprof = _prep_packed(
-            _to(dev, common.pack_codes(plan, reads_padded[keep], n),
-                torch.int8), st.mat_ext_d)
-        score_d, er_d, ed_d, mc_d = cuda_sw.forward_shared_packed(
-            pprof, st.ref_codes, _to(dev, so), _to(dev, sl), _to(dev, rl_s),
-            _to(dev, (plan.row * plan.S + plan.slot)[:B].astype(np.int32)),
-            req.gapO, req.gapE, max_sub=max_sub, valid_len=ref_len,
-            quirk=quirk, word=bool(word_tier), dual=dual, slot_max=slot_max,
-            gate=_gate(plan.L, req.gapO, req.gapE, max_sub, slot_max))
+        pprof, tables = _packed_inputs(plan, reads_padded[keep],
+                                       read_len[keep], B, n, st.mat_ext_d)
+        score_d, er_d, ed_d, mc_d = _packed_forward(
+            plan, pprof, st.ref_codes, tables, req.gapO, req.gapE, max_sub,
+            ref_len, quirk, bool(word_tier), dual)
     elif dual:
         profile, cm_d, seg_d, ss_d = _prep_device(
             st.reads_d, st.rl_d, st.mat_ext_d, _to(dev, col_word), L,
@@ -1162,9 +1195,7 @@ def align_batch_sharded(req: BatchRequest, mesh, device=None) -> list:
     # reads get word rows (and word suboptimal edges) up front; only
     # might-but-didn't reads re-run, with byte rows.  Quirk on: word-tier
     # reads re-run with word geometry (the whole DP is tier-dependent).
-    might = np.zeros(Bp, dtype=bool)
-    if req.score_size == 2 and not quirk:
-        might = read_len.astype(np.int64) * max_sub + bias >= 255
+    might = _might_overflow(read_len, req.score_size, quirk, max_sub, bias)
     word = np.full(Bp, word_tier)
     with _phase("forward"):
         score, end_ref, end_read, score2, ref_end2 = fwd(

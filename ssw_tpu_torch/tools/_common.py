@@ -65,6 +65,25 @@ def card_line() -> str:
     return lines[0] if r.returncode == 0 and lines else ""
 
 
+INT32_LANES_PER_SM = 64  # INT32 lanes per SM per clock (Hopper white paper)
+
+
+def int32_rate(dev, mhz: float | None = None) -> float:
+    """The card's peak INT32 rate, op/s: INT32 lanes x SMs x the max SM
+    clock in MHz (given, else nvidia-smi's, else the H100's 1980)."""
+    if mhz is None:
+        try:
+            r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                                "--format=csv,noheader,nounits"],
+                               capture_output=True, text=True, timeout=60)
+            mhz = float(r.stdout.split()[0])
+        except (OSError, ValueError, IndexError,
+                subprocess.TimeoutExpired):
+            mhz = 1980.0
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return INT32_LANES_PER_SM * sms * float(mhz) * 1e6
+
+
 def time_ms(fn, reps: int, warm: bool = True) -> float:
     """Mean ms per call of fn over reps calls, by CUDA events."""
     if warm:

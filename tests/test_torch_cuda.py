@@ -83,9 +83,13 @@ def test_forward_shared_i16_kernel_equals_plain(card, L, B, mat, gapO, gapE):
 def test_i16_parity_gate_runs_once_uncounted(card):
     cuda_sw._I16_CHECKED.clear()
     before = cuda_sw.launch_counts()
+    probes = cuda_sw.parity_counts()["_i16_parity"]
     cuda_sw._i16_parity(card)
     assert cuda_sw.launch_counts() == before
+    assert cuda_sw.parity_counts()["_i16_parity"] == probes + 3
     assert card.index in cuda_sw._I16_CHECKED
+    cuda_sw._i16_parity(card)
+    assert cuda_sw.parity_counts()["_i16_parity"] == probes + 3
 
 
 @pytest.mark.parametrize("L,B,mat,gapO,gapE,quirk,max_sub", [
@@ -801,3 +805,73 @@ def test_front_end_bridge_on_card_equals_cpu(card):
             _wave_only(before)
     assert outs[0] == outs[1] and '"error":"bad json"' in outs[0]
     assert outs[0].count('"error"') == 1
+
+
+def test_bench_line_on_card(card, capsys):
+    """`python -m ssw_tpu_torch.bench` in-process on the card: bench.py's
+    four keys last, every launch the packed wavefront in the pipeline's
+    mode; then the timed call on the card equals the plain version on the
+    target's first 4096 columns, and its block maxima there."""
+    import json
+
+    from ssw_tpu_torch import bench
+
+    assert bench.main([]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    info, last = json.loads(lines[-2]), json.loads(lines[-1])
+    assert list(last) == ["metric", "value", "unit", "vs_baseline"]
+    assert last["value"] > 0
+    assert abs(last["vs_baseline"] - last["value"] / 1.1) <= 0.01
+    name = "forward_shared_packed" + ("_dual" if info["dual"] else "")
+    n = info["launches"][name]
+    assert n == 2 + bench.TIMED_CALLS
+    assert {k: v for k, v in info["launches"].items() if v} == {name: n}
+    assert {k: v for k, v in info["libraries"].items() if v} == {
+        "sw_wave_packed": n}
+
+    ref = bench.make_target(bench.CARD_R)
+    leaf = bench.Leaf(ref, bench.READS, bench.READ_LEN, card)
+    inputs = leaf.inputs(bench.make_reads(ref, 1, bench.READS))
+    full = leaf.call(inputs)
+    cols = 4096
+    head = leaf.ref_d[:cols].contiguous()
+    got = leaf.call(inputs, head, cols)
+    pprof, tables = inputs
+    want = scan_sw.forward_shared_ref_packed(
+        pprof, head, *tables, bench.GAP_O, bench.GAP_E,
+        max_sub=bench.MAX_SUB, valid_len=cols, dual=leaf.dual)
+    _equal(got, want)
+    assert torch.equal(full[3][..., :cols // 256], want[3])
+
+
+def test_protein_leaf_wave_equals_scan_body(card):
+    """Config 2 at scale (tools/bench_protein's workload): its largest
+    leaf (L 128), the int32 base mode with the quirk, on the wavefront
+    equals the column-scan body over the whole padded proteome (229,376
+    columns) and the plain version on a slice."""
+    from ssw_tpu_torch.tools import bench_protein
+
+    reads, ref, mat = bench_protein.workload()
+    group = [r for r in reads if 64 < common.pad_total(len(r), False) <= 128]
+    L, n = 128, mat.shape[0]
+    max_sub = int(np.abs(mat).max())
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a)).to(card)
+    read_len = np.array([len(r) for r in group], np.int32)
+    rl = t(read_len)
+    prof, cm, seg, ss = pipeline._prep_device(
+        t(common.pad_reads(group, L, n)).to(torch.int8), rl,
+        t(common.extend_matrix(mat)).to(torch.int8),
+        torch.zeros(len(group), dtype=torch.bool, device=card), L, False)
+    Rp = common.bucket_size(len(ref), 256)
+    ref_p = np.full(Rp, n, np.int32)
+    ref_p[:len(ref)] = ref
+    args = (prof, t(ref_p), rl, cm, seg, ss, 3, 1, True)
+    assert cuda_sw.quirk_wave_exact(L, max_sub) and len(group) > 200
+    before = cuda_sw.library_counts()["sw_wave_i32"]
+    got = cuda_sw.forward_shared(*args, max_sub=max_sub)
+    assert cuda_sw.library_counts()["sw_wave_i32"] == before + 1
+    _equal(got, cuda_sw.forward_shared(*args, max_sub=max_sub,
+                                       scan_body=True))
+    sl = (prof, t(ref_p[:4096]), rl, cm, seg, ss, 3, 1, True)
+    _equal(cuda_sw.forward_shared(*sl, max_sub=max_sub),
+           scan_sw.forward_shared_ref(*sl))

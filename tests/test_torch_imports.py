@@ -15,8 +15,9 @@ import pytest
 import torch
 
 import ssw_tpu_torch
-from ssw_tpu_torch import api, bridge, cli, pipeline, pyssw, ssw_lib
+from ssw_tpu_torch import api, bench, bridge, cli, pipeline, pyssw, ssw_lib
 from ssw_tpu_torch.ops import _kernels, cuda_sw
+from ssw_tpu_torch.tools import bench_protein, run_config4_full
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -43,7 +44,9 @@ def test_no_module_imports_jax_or_ssw_tpu():
             "ssw_tpu_torch.tools.i16_fault",
             "ssw_tpu_torch.tools.sass_diff", "ssw_tpu_torch.api",
             "ssw_tpu_torch.ssw_lib", "ssw_tpu_torch.pyssw",
-            "ssw_tpu_torch.bridge"} <= set(mods)
+            "ssw_tpu_torch.bridge", "ssw_tpu_torch.bench",
+            "ssw_tpu_torch.tools.run_config4_full",
+            "ssw_tpu_torch.tools.bench_protein"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -82,7 +85,11 @@ def test_default_device_raises_without_cuda(monkeypatch):
                  lambda: pyssw.main(data, out=io.StringIO(),
                                     err=io.StringIO()),
                  lambda: bridge.serve(io.StringIO("{}\n"), io.StringIO()),
-                 lambda: bridge.start()):
+                 lambda: bridge.start(),
+                 lambda: bench.main([]),
+                 lambda: run_config4_full.run(*data),
+                 lambda: bench_protein.run(req.reads, req.ref, req.mat,
+                                           False)):
         with pytest.raises(RuntimeError, match="is_available"):
             call()
     assert pipeline.resolve_device("cpu").type == "cpu"
