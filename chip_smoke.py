@@ -153,6 +153,23 @@ Phases (any failure exits non-zero before the final line):
      the same reads in the same mode, all equal (tolerance 0); the bench's
      times and bound join the packed kernel's row of its mode in the
      {"kernels": [...]} line, printed last
+  9. the measurement battery, the JAX package's remaining tools ported
+     (ssw_tpu_torch/tools), on phase 5h's tools/make_data.py files: 9a
+     BASELINE config 5 on 10M.fa (1M.fa's slice and a random tail) with
+     1000 reads, -c -s -h: bench_longtarget cold and warm, then two dcli
+     align processes (--num-hosts 2, gloo, each over [card] x 2 at
+     --mesh-seq 2), merged; the three SAMs byte-equal, >= 0.95 of the
+     forward-strand reads at their sampled position; 9b bench_iontorrent
+     cold and warm, byte-equal to phase 5c's default-route SAM; 9c
+     bench_leaf, 3 reps with one checksum; 9d sweep_boundaries' stream and
+     pack-width sweeps (each setting's checksum equal); 9e
+     spotcheck_revmem at (B, L, W) = (2048, 1024, 8192), its first 16
+     reads equal to the plain reverse pass on the card (the K = 32
+     per-read template), peak memory and the K = 32 ptxas registers and
+     spills; 9f spotcheck_cuda, 0 mismatches; 9g bench_suite --reads
+     2000 over meshes of [card] x 1, 2, 4, 8, its JSON on one line, each
+     mesh's outputs equal.  Launch counts are set to 0 before phase 9 and
+     read after it: they join each kernel's row as launches_9
 
 The last line of stdout is {"ok": true, "device": {...}}.  Imports nothing
 of JAX and nothing of the JAX package.
@@ -1446,7 +1463,7 @@ def phase_iontorrent(torch, dev, scratch, card, ion):
         f"(dual and re-run route, the rule and GATE=tiers), "
         f"{hits / len(recs):.4f} at the sampled position; walls "
         f"{json.dumps(walls32)}")
-    return res
+    return res, outs[0]
 
 
 ION_PENALTIES2 = ("-m", "1", "-x", "3", "-o", "5", "-e", "2")
@@ -1563,20 +1580,26 @@ sys.exit(dcli.main({args!r}))
 """
 
 
+def free_coordinator() -> str:
+    """A free local port for a gloo rendezvous, as HOST:PORT."""
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return f"127.0.0.1:{port}"
+
+
 def phase_two_process(scratch):
     """BASELINE config 3 (54mer_hap1_1.100.fastq vs 100k.fa -r -c -s -h) as
     two dcli align processes on the card that meet in a gloo rendezvous
     (--coordinator 127.0.0.1:<free port>), then dcli merge: equal to the
     reference-binary capture.  Both processes are killed if they outlive
     their time limit."""
-    import socket
-
     from ssw_tpu_torch import dcli
 
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    coord = f"127.0.0.1:{s.getsockname()[1]}"
-    s.close()
+    coord = free_coordinator()
     prefix = os.path.join(scratch, "two_proc")
     procs = []
     t0 = time.perf_counter()
@@ -2027,6 +2050,23 @@ CONFIG4_FULL_SHA256 = ("3602ab95b928f9449848bfca3ed23f0c2f9b61eaa9f4227375d7"
                        "6b82c8e01aee")
 
 
+def sampled_position_share(sam: str, strand=None) -> tuple[float, int]:
+    """The share of SAM records (of reads of `strand`, f or r, or all) at
+    the 0-based position in their name, @sim_<i>_<pos>_<f|r>; and their
+    count."""
+    hits = n = 0
+    for line in sam.splitlines():
+        if line.startswith("@"):
+            continue
+        f = line.split("\t", 4)
+        name = f[0].split("_")
+        if strand is not None and name[3] != strand:
+            continue
+        n += 1
+        hits += int(f[3]) - 1 == int(name[2])
+    return hits / max(n, 1), n
+
+
 def phase_config4_full(torch, dev, scratch, card):
     """BASELINE config 4 at its 100,000 reads: tools/make_data.py's FASTQ
     (run unedited, as a subprocess), then the port's run_config4_full by
@@ -2061,20 +2101,16 @@ def phase_config4_full(torch, dev, scratch, card):
             pipeline.STREAM_SUBOPT = None
         check(res["rc"] == 0, f"config 4 full, {label}: rc {res['rc']}")
         body = run_config4_full.sam_body(sam)
-        records = body.splitlines()
-        hits = 0
-        for rec_line in records:
-            f = rec_line.split("\t", 4)
-            hits += int(f[3]) - 1 == int(f[0].split("_")[2])
+        share, n_records = sampled_position_share(body)
         inside = sum(res["phases_s"].values())
-        res = {**win, **res, "card": card, "records": len(records),
+        res = {**win, **res, "card": card, "records": n_records,
                "sam_body_bytes": len(body),
-               "begin_at_sampled_pos": hits / max(len(records), 1),
+               "begin_at_sampled_pos": share,
                "host_s_outside_phases": res["wall_s"] - inside,
                "host_share": (res["wall_s"] - inside) / res["wall_s"]}
         log(f"  config4 full {label} " + json.dumps(res))
-        check(len(records) == run_config4_full.FULL_READS,
-              f"config 4 full, {label}: {len(records)} SAM records")
+        check(n_records == run_config4_full.FULL_READS,
+              f"config 4 full, {label}: {n_records} SAM records")
         check(res["begin_at_sampled_pos"] >= 0.95,
               f"config 4 full, {label}: only "
               f"{res['begin_at_sampled_pos']:.4f} of the reads at their "
@@ -3117,6 +3153,201 @@ def check_designs(launches, gated, libraries):
         f"in sw_wave_perread")
 
 
+# ------------------------------------------------------------------- phase 9
+
+LONGTARGET_READS = 1000      # phase 9a: bench_longtarget's default
+CONFIG5_HOSTS = 2            # phase 9a: BASELINE config 5 as two hosts,
+CONFIG5_HOST_SEQ = 2         # each over [card] * 2 (--mesh-seq 2)
+LEAF_REPS = 3                # phase 9c
+REVMEM_SHAPE = (2048, 1024, 8192)  # phase 9e: BENCH.md's (B, L, W)
+REVMEM_PLAIN_READS = 16      # phase 9e: held to the plain version
+SUITE_READS = 2000           # phase 9g: bench_suite --reads
+SUITE_MESH_REPEAT = 8        # phase 9g: meshes of [card] * 1, 2, 4, 8
+
+HOST_RUNNER = """
+import json, sys, time
+sys.path.insert(0, {root!r})
+import torch
+from ssw_tpu_torch import dcli, pipeline, profiling
+dev = torch.device("cuda:0")
+counter = profiling.GcupsCounter()
+t0 = time.perf_counter()
+with pipeline.profiled(counter):
+    rc = dcli.main({args!r}, devices=[dev] * {seq})
+torch.cuda.synchronize()
+print(json.dumps({{"rc": rc, "wall_s": time.perf_counter() - t0,
+                  "phase_seconds": counter.seconds,
+                  "peak_device_bytes": torch.cuda.max_memory_allocated(dev)}}))
+sys.exit(rc)
+"""
+
+
+def phase_longtarget(torch, dev, scratch, card, data):
+    """9a: BASELINE config 5 on tools/make_data.py's 10M.fa (1M.fa's slice
+    and a composition-matched random tail) with the first 1000 reads of its
+    FASTQ, -c -s -h: bench_longtarget's cold and warm runs (byte-equal
+    SAMs), then two dcli align processes (--num-hosts 2, each over [card]
+    * 2, --mesh-seq 2) joined by a gloo rendezvous, merged: byte-equal to
+    bench_longtarget's SAM.  Without -r only the forward-strand reads can
+    align at their sampled position: >= 0.95 of them must."""
+    from ssw_tpu_torch import dcli
+    from ssw_tpu_torch.tools import bench_longtarget
+
+    ref = os.path.join(data, "10M.fa")
+    fq = os.path.join(data, "100k_illumina1.fastq.gz")
+    runs, sam = bench_longtarget.run(ref, fq, LONGTARGET_READS, dev)
+    for r in runs:
+        check(r["rc"] == 0 and r["records"] == LONGTARGET_READS,
+              f"bench_longtarget {r['run']}: rc {r['rc']}, {r['records']} "
+              f"records")
+        log(f"  longtarget {r['run']} " + json.dumps({**r, "card": card}))
+    fwd, n_fwd = sampled_position_share(sam, "f")
+    every, _ = sampled_position_share(sam)
+    log(f"  longtarget: cold and warm SAMs byte-equal ({len(sam)} bytes); "
+        f"{fwd:.4f} of the {n_fwd} forward-strand reads and {every:.4f} of "
+        f"all reads at their sampled position")
+    check(fwd >= 0.95, f"config 5: only {fwd:.4f} of the forward-strand "
+          f"reads at their sampled position")
+    # BASELINE config 5 as two hosts
+    head = bench_longtarget.head_fastq(
+        fq, LONGTARGET_READS, os.path.join(scratch, "config5_1k.fastq"))
+    prefix = os.path.join(scratch, "config5_hosts")
+    coord = free_coordinator()
+    procs = []
+    t0 = time.perf_counter()
+    for host in range(CONFIG5_HOSTS):
+        args = ["align", "-c", "-s", "--header", "--coordinator", coord,
+                "--num-hosts", str(CONFIG5_HOSTS), "--host-id", str(host),
+                "--mesh-seq", str(CONFIG5_HOST_SEQ), "--out", prefix, ref,
+                head]
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", HOST_RUNNER.format(
+                root=ROOT, args=args, seq=CONFIG5_HOST_SEQ)],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True))
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=300)
+            outs.append((p.returncode, out, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.perf_counter() - t0
+    hosts = []
+    for host, (rc, out, err) in enumerate(outs):
+        check(rc == 0, f"config 5 host {host}: rc {rc}: {err[-2000:]}")
+        hosts.append(json.loads(out.strip().splitlines()[-1]))
+    merged = prefix + ".sam"
+    check(dcli.main(["merge", "--out", merged] + [
+        f"{prefix}.part{h}" for h in range(CONFIG5_HOSTS)],
+        err=io.StringIO()) == 0, "config 5: dcli merge failed")
+    with open(merged) as f:
+        same = f.read() == sam
+    res = {"card": card, "reads": LONGTARGET_READS,
+           "hosts": CONFIG5_HOSTS, "mesh_per_host": f"1 x {CONFIG5_HOST_SEQ}",
+           "wall_s": wall, "reads_per_s": LONGTARGET_READS / wall,
+           "host_runs": hosts, "byte_equal_to_longtarget": same}
+    log("  config5 two hosts " + json.dumps(res))
+    check(same, "config 5: the two hosts' merged SAM differs from "
+          "bench_longtarget's")
+    return runs, res
+
+
+def phase_battery(torch, dev, scratch, card, ion_sam):
+    """Phase 9: the JAX package's remaining measurement tools, ported
+    (ssw_tpu_torch/tools), on phase 5h's bench_data; every check fails the
+    script."""
+    from ssw_tpu_torch.ops import cuda_sw, scan_sw
+    from ssw_tpu_torch.tools import (_common, bench_iontorrent, bench_leaf,
+                                     bench_suite, spotcheck_cuda,
+                                     spotcheck_revmem, sweep_boundaries)
+
+    data = os.path.join(scratch, "bench_data")
+    t0 = time.perf_counter()
+    log("  9a config 5 on 10M.fa (bench_longtarget, then two hosts):")
+    phase_longtarget(torch, dev, scratch, card, data)
+    log(f"  9a done in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    runs, sam = bench_iontorrent.run(
+        os.path.join(data, "ecoli_synth.fa"),
+        os.path.join(data, "iontorrent_1k.fastq"), dev)
+    for r in runs:
+        check(r["rc"] == 0 and r["records"] == bench_iontorrent.N_READS,
+              f"bench_iontorrent {r['run']}: rc {r['rc']}, {r['records']} "
+              f"records")
+        log(f"  9b iontorrent {r['run']} " + json.dumps({**r, "card": card}))
+    log(f"  9b iontorrent: cold and warm SAMs byte-equal; equal to phase "
+        f"5c's default-route SAM: {sam == ion_sam}")
+    check(sam == ion_sam, "bench_iontorrent's SAM (tools/make_data.py's "
+          "files) differs from phase 5c's")
+    log(f"  9b done in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    rows = bench_leaf.run(reps=LEAF_REPS, device=dev)
+    for r in rows:
+        log("  9c leaf " + json.dumps({**r, "card": card}))
+    check(all(r["checksum"] == rows[0]["checksum"] for r in rows),
+          "bench_leaf: the reps' checksums differ")
+    log(f"  9c done in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    for r in sweep_boundaries.sweep_stream(dev):
+        log("  9d stream " + json.dumps({**r, "card": card}))
+    for r in sweep_boundaries.sweep_packw(dev):
+        log("  9d packw " + json.dumps({**r, "card": card}))
+    log(f"  9d done in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    res, inp, got = spotcheck_revmem.run(*REVMEM_SHAPE, dev)
+    log("  9e revmem " + json.dumps({**res, "card": card}))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    again = spotcheck_revmem.reverse(inp)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t1
+    B, L, W = REVMEM_SHAPE
+    bound = B * L * W * cuda_sw.OPS_PER_CELL / _common.int32_rate(dev) * 1e3
+    log(f"  9e revmem: a second call {warm * 1e3:.3f} ms (no read "
+        f"terminates: {B} x {L} x {W} cells, integer-ALU bound "
+        f"{bound:.3f} ms)")
+    check(torch.equal(again, got), "the reverse pass differs between two "
+          "calls on the same inputs")
+    check(res["ptxas_k"], "no ptxas -v record of sw_wave_perread's K = 32 "
+          "entries in this process")
+    real = cuda_sw.forward_perread
+    cuda_sw.forward_perread = scan_sw.forward_perread_ref
+    try:
+        want = spotcheck_revmem.reverse(inp, rows=REVMEM_PLAIN_READS)
+    finally:
+        cuda_sw.forward_perread = real
+    err = max_abs_diff(torch, got[:, :REVMEM_PLAIN_READS], want)
+    log(f"  9e revmem: the first {REVMEM_PLAIN_READS} reads against the "
+        f"plain version on the card: max_abs_err {err}")
+    check(err == 0, f"the reverse pass at {REVMEM_SHAPE} differs from the "
+          f"plain version (max_abs_err {err})")
+    log(f"  9e done in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    total = spotcheck_cuda.run(dev)
+    check(total == 0, f"spotcheck_cuda: {total} mismatches")
+    log(f"  9f done in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    report = bench_suite.suite(SUITE_READS, device=dev,
+                               mesh_repeat=SUITE_MESH_REPEAT,
+                               fastq=os.path.join(
+                                   data, "100k_illumina1.fastq.gz"))
+    log(json.dumps({"bench_suite": report, "card": card}))
+    check("skipped" not in report["scaling"]
+          and "skipped" not in report["e2e_config4"],
+          f"bench_suite skipped a section: {report}")
+    log(f"  9g done in {time.perf_counter() - t0:.1f} s")
+
+
 # ---------------------------------------------------------------------- main
 
 def main() -> int:
@@ -3229,7 +3460,7 @@ def main() -> int:
             log(f"phase 5c Ion Torrent headline: {ION_READS} reads vs "
                 f"{ION_GENOME} bp, -c -s -h:")
             ion = ion_data(scratch)
-            phase_iontorrent(torch, dev, scratch, smi, ion)
+            _, ion_sam = phase_iontorrent(torch, dev, scratch, smi, ion)
             log(f"phase 5c done in {time.perf_counter() - t0:.1f} s")
             t0 = time.perf_counter()
             log(f"phase 5d Ion Torrent headline, second penalty set "
@@ -3325,9 +3556,21 @@ def main() -> int:
         packed["bench_leaf"]["line"] = line
         log(f"  bench line: {json.dumps(line)}")
         log(f"phase 8 done in {time.perf_counter() - t0:.1f} s")
+        # phase 9, the measurement battery: counts from 0
+        cuda_sw.reset_launches()
+        t0 = time.perf_counter()
+        log("phase 9 the measurement battery (ssw_tpu_torch/tools):")
+        phase_battery(torch, dev, scratch, smi, ion_sam)
+        battery = cuda_sw.launch_counts()
+        log(f"  battery launches (phase 9): {json.dumps(battery)}; by "
+            f"library: {json.dumps(cuda_sw.library_counts())}")
+        for row in kernels:
+            row["launches_9"] = battery.get(row["name"], 0)
+            row["launches"] += row["launches_9"]
+        log(f"phase 9 done in {time.perf_counter() - t0:.1f} s")
         log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
-    except SmokeFailure as e:
-        log(f"FAIL: {e}")
+    except (SmokeFailure, AssertionError) as e:
+        log(f"FAIL: {e or repr(e)}")
         return 1
     finally:
         shutil.rmtree(scratch, ignore_errors=True)

@@ -379,16 +379,20 @@ def _pack_rule(read_len, col_word, Bp: int, L: int):
     """PACK = None on the H100: pack every streaming leaf, at the narrowest
     of PACK_WIDTHS (or PACK_L) that holds two of its longest slots.
 
-    The packed kernel runs one warp per slot (csrc/sw_forward_packed.cu),
+    The packed kernel runs one warp per slot (csrc/sw_wave_packed.cu),
     so lane utilisation, which the JAX planner weighs, costs nothing here;
     what differs is that a packed read runs the int32 kernel at its slot's
-    width and stops at the target's last real column.  In turns on the
-    same reads (chip_smoke.py phase 6, NVIDIA H100 80GB HBM3, 700 W), the
-    packed leaf took 257.8 ms against 294.7 ms for the unpacked int16
-    blockmax leaf (config 4: 1024 x 100 bp, 2^20 columns) and 1495.4 ms
-    against 1841.8 ms for the unpacked int16 dual leaf (the Ion Torrent
-    L = 192 group: 293 reads, 5,242,880 columns); config 4 streaming took
-    4.851 s packed against 5.353 and 5.281 s unpacked (PERF.md)."""
+    width and stops at the target's last real column.  On the wavefront,
+    in turns on the same reads (chip_smoke.py phase 6; NVIDIA H100 80GB
+    HBM3, 700.00 W; PERF.md), the packed leaf took 89.96 ms against
+    111.45 ms for the unpacked int16 blockmax leaf (config 4: 1024 x
+    100 bp, 2^20 columns) and 486.35 ms against 733.06 ms for the unpacked
+    int16 dual leaf (the Ion Torrent L = 192 group: 293 reads, 5,242,880
+    columns).  The width (tools/sweep_boundaries.py packw, chip_smoke.py
+    phase 9d, same card): 2048 reads against 2^20 columns took 0.273,
+    0.277, 0.283 and 0.270 s at 100 bp with the rule's choice (1024) and
+    PACK_L 1024, 2048, 4096, and 0.475, 0.480, 0.481 and 0.588 s at
+    200 bp."""
     slot_len = _slot_len(read_len, col_word)
     for W in (PACK_L,) if PACK_L else PACK_WIDTHS:
         if int(slot_len.max()) <= W // 2:

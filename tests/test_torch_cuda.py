@@ -875,3 +875,25 @@ def test_protein_leaf_wave_equals_scan_body(card):
     sl = (prof, t(ref_p[:4096]), rl, cm, seg, ss, 3, 1, True)
     _equal(cuda_sw.forward_shared(*sl, max_sub=max_sub),
            scan_sw.forward_shared_ref(*sl))
+
+
+def test_reverse_pass_l1024_equals_plain(card, monkeypatch):
+    """spotcheck_revmem's reverse pass at L 1024 (the per-read wavefront's
+    K = 32 template) and W 8192 with no early terminate, B 8: equal to the
+    plain version on the card."""
+    from ssw_tpu_torch.tools import spotcheck_revmem
+
+    res, inp, got = spotcheck_revmem.run(8, 1024, 8192, card)
+    assert res["peak_bytes_in_use"] > 0 and res["bytes_limit"] > 0
+    monkeypatch.setattr(cuda_sw, "forward_perread",
+                        scan_sw.forward_perread_ref)
+    want = spotcheck_revmem.reverse(inp)
+    assert torch.equal(got, want)
+
+
+def test_spotcheck_cuda_cut_cases(card):
+    """spotcheck_cuda's five cases and its sharded check, cut to 8 reads
+    each: the card against the CPU, no mismatch."""
+    from ssw_tpu_torch.tools import spotcheck_cuda
+
+    assert spotcheck_cuda.run(card, n_reads=8) == 0

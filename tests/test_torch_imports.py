@@ -17,7 +17,10 @@ import torch
 import ssw_tpu_torch
 from ssw_tpu_torch import api, bench, bridge, cli, pipeline, pyssw, ssw_lib
 from ssw_tpu_torch.ops import _kernels, cuda_sw
-from ssw_tpu_torch.tools import bench_protein, run_config4_full
+from ssw_tpu_torch.tools import (bench_iontorrent, bench_leaf,
+                                 bench_longtarget, bench_protein, bench_suite,
+                                 run_config4_full, spotcheck_cuda,
+                                 spotcheck_revmem, sweep_boundaries)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -46,7 +49,14 @@ def test_no_module_imports_jax_or_ssw_tpu():
             "ssw_tpu_torch.ssw_lib", "ssw_tpu_torch.pyssw",
             "ssw_tpu_torch.bridge", "ssw_tpu_torch.bench",
             "ssw_tpu_torch.tools.run_config4_full",
-            "ssw_tpu_torch.tools.bench_protein"} <= set(mods)
+            "ssw_tpu_torch.tools.bench_protein",
+            "ssw_tpu_torch.tools.sweep_boundaries",
+            "ssw_tpu_torch.tools.bench_leaf",
+            "ssw_tpu_torch.tools.bench_longtarget",
+            "ssw_tpu_torch.tools.bench_iontorrent",
+            "ssw_tpu_torch.tools.spotcheck_revmem",
+            "ssw_tpu_torch.tools.spotcheck_cuda",
+            "ssw_tpu_torch.tools.bench_suite"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -89,7 +99,16 @@ def test_default_device_raises_without_cuda(monkeypatch):
                  lambda: bench.main([]),
                  lambda: run_config4_full.run(*data),
                  lambda: bench_protein.run(req.reads, req.ref, req.mat,
-                                           False)):
+                                           False),
+                 lambda: sweep_boundaries.run_once(req.ref, req.reads,
+                                                   req.mat, None),
+                 lambda: bench_leaf.run(),
+                 lambda: bench_longtarget.one_run("cold", data, 1),
+                 lambda: bench_iontorrent.one_run("cold", *data),
+                 lambda: spotcheck_revmem.run(),
+                 lambda: spotcheck_cuda.check(spotcheck_cuda.cases(1)[0]),
+                 lambda: bench_suite.bench_forward_gcups(),
+                 lambda: bench_suite.device_pool()):
         with pytest.raises(RuntimeError, match="is_available"):
             call()
     assert pipeline.resolve_device("cpu").type == "cpu"
