@@ -27,7 +27,7 @@ import re
 import sys
 import time
 
-from ssw_tpu_torch import pipeline
+from ssw_tpu_torch import pipeline, profiling
 from ssw_tpu_torch.core.encoding import (AA_TABLE, BLOSUM50, NT_TABLE, dna_matrix,
                                    encode_with_table, parse_matrix_file,
                                    reverse_complement)
@@ -193,31 +193,32 @@ def main(argv: list[str] | None = None, out=None, err=None,
             # ref: src/main.c:436); fail cleanly instead
             err.write(f"Failed to open the file {path}.\n")
             return 1
-    sam = opts["sam"]
-    if sam and opts["header"] and opts["path"]:
-        out.write("@HD\tVN:1.4\tSO:queryname\n")
-        for rec in read_fastx(target_path):
-            out.write(f"@SQ\tSN:{rec.name}\tLN:{len(rec.seq)}\n")
-    elif sam and not opts["path"]:
-        err.write("SAM format output is only available together with option -c.\n")
-        sam = False
-
-    start = time.process_time()
     # opt-in observability: SSW_TPU_PROFILE=1 prints a per-phase GCUPS
-    # report to stderr after the CPU-time line and SSW_TPU_TRACE=<dir>
-    # captures a torch.profiler trace
-    from ssw_tpu_torch import profiling
-    counter = (profiling.GcupsCounter()
-               if os.environ.get("SSW_TPU_PROFILE") else None)
+    # report to stderr after the CPU-time line; SSW_TPU_TRACE=<dir> writes
+    # a torch.profiler trace with the spans on it.  Either routes a counter.
+    trace_dir = os.environ.get("SSW_TPU_TRACE")
+    report = bool(os.environ.get("SSW_TPU_PROFILE"))
+    counter = profiling.GcupsCounter() if report or trace_dir else None
     with contextlib.ExitStack() as ctx:
-        # contexts enter INSIDE the with so a parse failure still unwinds
-        # the module-global pipeline._counter
+        # contexts enter INSIDE the with so a failure still unwinds the
+        # routed counter
         if counter is not None:
             ctx.enter_context(pipeline.profiled(counter))
-            ctx.enter_context(
-                profiling.trace(os.environ.get("SSW_TPU_TRACE")))
-        with (counter.phase("parse_target") if counter
-              else contextlib.nullcontext()):
+            ctx.enter_context(profiling.trace(trace_dir))
+        ctx.enter_context(profiling.span("cli.main"))
+        sam = opts["sam"]
+        if sam and opts["header"] and opts["path"]:
+            with profiling.span("cli.header"):
+                out.write("@HD\tVN:1.4\tSO:queryname\n")
+                for rec in read_fastx(target_path):
+                    out.write(f"@SQ\tSN:{rec.name}\tLN:{len(rec.seq)}\n")
+        elif sam and not opts["path"]:
+            err.write("SAM format output is only available together with "
+                      "option -c.\n")
+            sam = False
+
+        start = time.process_time()
+        with profiling.span("cli.parse_target"):
             # hold the targets in memory only when they fit one chunk;
             # otherwise stream the file per read batch (bounded memory)
             gen = _target_chunks(target_path, table)
@@ -245,10 +246,11 @@ def main(argv: list[str] | None = None, out=None, err=None,
         def render_pending(prev):
             entries, pends = prev
             per_target = complete_batch(pends, filt)
-            for text in render_results(entries, targets, enc_targets,
-                                       per_target, table, sam, filt, opts,
-                                       err):
-                out.write(text)
+            with profiling.span("cli.render"):
+                for text in render_results(entries, targets, enc_targets,
+                                           per_target, table, sam, filt,
+                                           opts, err):
+                    out.write(text)
 
         def flush_batch(last=False):
             nonlocal pending
@@ -275,23 +277,25 @@ def main(argv: list[str] | None = None, out=None, err=None,
                 render_pending(pending)
                 pending = None
 
-        for rec in read_fastx(query_path):
-            if opts["reverse"] and n == 24:
-                err.write("Reverse complement alignment is not available "
-                          "for protein sequences. \n")
-                return 1
-            entry = {"rec": rec, "num": encode_with_table(rec.seq, table)}
-            if rc_allowed:
-                entry["rc"] = reverse_complement(rec.seq)
-                entry["num_rc"] = encode_with_table(entry["rc"], table)
-            batch.append(entry)
-            if len(batch) >= batch_size:
-                flush_batch()
-        flush_batch(last=True)
+        with profiling.span("cli.reads"):
+            for rec in read_fastx(query_path):
+                if opts["reverse"] and n == 24:
+                    err.write("Reverse complement alignment is not "
+                              "available for protein sequences. \n")
+                    return 1
+                entry = {"rec": rec,
+                         "num": encode_with_table(rec.seq, table)}
+                if rc_allowed:
+                    entry["rc"] = reverse_complement(rec.seq)
+                    entry["num_rc"] = encode_with_table(entry["rc"], table)
+                batch.append(entry)
+                if len(batch) >= batch_size:
+                    flush_batch()
+            flush_batch(last=True)
 
     cpu_time = time.process_time() - start
     err.write(f"CPU time: {cpu_time:f} seconds\n")
-    if counter is not None:
+    if report:
         err.write(counter.report() + "\n")
     return 0
 
@@ -327,12 +331,13 @@ def stream_render_batch(entries, target_path, table, mat, opts, sam, filt,
     def render_chunk(prev):
         tchunk, echunk, pends = prev
         per_target = complete_batch(pends, filt)
-        for bi, entry in enumerate(entries):
-            for ti, t in enumerate(tchunk):
-                res, res_rc = per_target[ti]
-                _emit_pair(bufs[bi], err, entry, t, echunk[ti], res[bi],
-                           res_rc[bi] if res_rc else None, table, sam,
-                           filt, opts)
+        with profiling.span("cli.render"):
+            for bi, entry in enumerate(entries):
+                for ti, t in enumerate(tchunk):
+                    res, res_rc = per_target[ti]
+                    _emit_pair(bufs[bi], err, entry, t, echunk[ti], res[bi],
+                               res_rc[bi] if res_rc else None, table, sam,
+                               filt, opts)
 
     prev = None
     for tchunk, echunk in _target_chunks(target_path, table):
@@ -343,8 +348,9 @@ def stream_render_batch(entries, target_path, table, mat, opts, sam, filt,
         prev = (tchunk, echunk, pends)
     if prev is not None:
         render_chunk(prev)
-    for b in bufs:
-        out.write(b.getvalue())
+    with profiling.span("cli.render"):
+        for b in bufs:
+            out.write(b.getvalue())
 
 
 def launch_batch(batch, enc_targets, mat, opts, filt, flag, rc_allowed,
@@ -442,8 +448,9 @@ def render_batch(batch, targets, enc_targets, mat, opts, table, sam, filt,
                     score_size=2)
                 res_rc = pipeline.align_batch_sharded(req_rc, mesh, device)
             per_target.append((res, res_rc))
-    return render_results(batch, targets, enc_targets, per_target, table,
-                          sam, filt, opts, err)
+    with profiling.span("cli.render"):
+        return render_results(batch, targets, enc_targets, per_target,
+                              table, sam, filt, opts, err)
 
 
 def _emit_pair(out, err, b, t, enc_t, result, result_rc, table, sam,

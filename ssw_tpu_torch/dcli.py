@@ -211,13 +211,17 @@ def _align(args, out, err, local) -> int:
     import contextlib
 
     from ssw_tpu_torch import profiling
-    counter = (profiling.GcupsCounter()
-               if args.profile or os.environ.get("SSW_TPU_PROFILE")
-               else None)
-    ctx = (pipeline.profiled(counter) if counter is not None
-           else contextlib.nullcontext())
+
+    # --profile or SSW_TPU_PROFILE=1: the report line at exit;
+    # SSW_TPU_TRACE=<dir>: a torch.profiler trace with the spans on it
+    trace_dir = os.environ.get("SSW_TPU_TRACE")
+    report = args.profile or bool(os.environ.get("SSW_TPU_PROFILE"))
+    counter = profiling.GcupsCounter() if report or trace_dir else None
     t0 = time.perf_counter()
-    with ctx:
+    with contextlib.ExitStack() as ctx:
+        if counter is not None:
+            ctx.enter_context(pipeline.profiled(counter))
+            ctx.enter_context(profiling.trace(trace_dir))
         records = read_fastx(args.query)
         n_done = multihost.run_sharded(records, plan, align_fn, shard_path,
                                        journal, header=header_text or None)
@@ -225,7 +229,7 @@ def _align(args, out, err, local) -> int:
     err.write(f"host {args.host_id}/{args.num_hosts}: {n_done} reads in "
               f"{dt:.3f}s ({n_done / dt if dt else 0:.1f} reads/s) -> "
               f"{shard_path}\n")
-    if counter is not None:
+    if report:
         err.write(counter.report() + "\n")
     return 0
 

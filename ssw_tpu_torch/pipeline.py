@@ -29,40 +29,25 @@ is lossy there; see core/oracle.py).
 
 from __future__ import annotations
 
-import contextlib
 import sys
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from ssw_tpu_torch import profiling
 from ssw_tpu_torch.core import oracle
 from ssw_tpu_torch.core.encoding import matrix_bias
 from ssw_tpu_torch.ops import common, cuda_sw, gate, pack, scan_sw, subopt
 from ssw_tpu_torch.parallel import dist
 
 # -- observability hook (profiling.py) --------------------------------------
-# an active GcupsCounter collects per-phase seconds + useful-cell counts
-# from every align_batch call in the context (sub-batches and length
-# buckets recurse; the module-level slot keeps them on one counter)
-_counter = None
-
-
-@contextlib.contextmanager
-def profiled(counter):
-    """Route phase timings/cell counts of enclosed align_batch calls into
-    `counter` (a profiling.GcupsCounter)."""
-    global _counter
-    prev, _counter = _counter, counter
-    try:
-        yield counter
-    finally:
-        _counter = prev
-
-
-def _phase(name: str):
-    return _counter.phase(name) if _counter is not None \
-        else contextlib.nullcontext()
+# profiled(counter) routes a GcupsCounter: per-phase seconds, useful-cell
+# counts, spans and counts (`syncs`: one per blocking device->host copy)
+# from every call in the context (sub-batches and length buckets recurse;
+# the module-level slot keeps them on one counter)
+profiled = profiling.profiled
+_phase = profiling.phase
 
 
 def resolve_device(device=None) -> torch.device:
@@ -509,6 +494,11 @@ def align_batch(req: BatchRequest, device=None) -> list[oracle.AlignResult]:
     reference's s_align (ref: src/ssw.h:55-66); entries are None where the
     reference returns NULL (score_size=0 overflow).
     """
+    with profiling.span("pipeline.align_batch"):
+        return _align_batch(req, device)
+
+
+def _align_batch(req: BatchRequest, device) -> list:
     dev = resolve_device(device)
     B = len(req.reads)
     if B == 0:
@@ -541,11 +531,14 @@ def align_batch(req: BatchRequest, device=None) -> list[oracle.AlignResult]:
             results.extend(align_batch(sub, dev))
         return results
 
-    st = _leaf_start(req, dev, streaming)
+    with profiling.span("pipeline.launch"):
+        st = _leaf_start(req, dev, streaming)
     if isinstance(st, list):  # quirk value-range fallback
         return st
-    _leaf_mid(st)
-    return _leaf_finish(st)
+    with profiling.span("pipeline.mid"):
+        _leaf_mid(st)
+    with profiling.span("pipeline.finish"):
+        return _leaf_finish(st)
 
 
 def align_batch_launch(req: BatchRequest, device=None) -> _Pending:
@@ -558,22 +551,25 @@ def align_batch_launch(req: BatchRequest, device=None) -> _Pending:
     oracle fallback, score_size != 2) run synchronously here so warning
     order on stderr is identical to the serial path."""
     dev = resolve_device(device)
-    plan = _plan_async(req)
+    with profiling.span("pipeline.launch"):
+        plan = _plan_async(req)
+        if plan is not None:
+            pend = _Pending()
+            pend.B = len(req.reads)
+            for idx, leaf_req, streaming in plan:
+                st = _leaf_start(leaf_req, dev, streaming)
+                assert not isinstance(st, list)  # planner pre-checked guards
+                pend.parts.append((idx, st))
     if plan is None:
         return _Pending(results=align_batch(req, dev))
-    pend = _Pending()
-    pend.B = len(req.reads)
-    for idx, leaf_req, streaming in plan:
-        st = _leaf_start(leaf_req, dev, streaming)
-        assert not isinstance(st, list)  # planner pre-checked the guards
-        pend.parts.append((idx, st))
     return pend
 
 
 def align_batch_mid(pend: _Pending) -> _Pending:
     if pend.results is None and pend.stage < 1:
-        for _, st in pend.parts:
-            _leaf_mid(st)
+        with profiling.span("pipeline.mid"):
+            for _, st in pend.parts:
+                _leaf_mid(st)
         pend.stage = 1
     return pend
 
@@ -603,10 +599,11 @@ def align_batch_finish(pend: _Pending, detail=None) -> list:
         return pend.results
     align_batch_mid(pend)
     results: list = [None] * pend.B
-    for idx, st in pend.parts:
-        d = None if detail is None else np.asarray(detail)[list(idx)]
-        for i, r in zip(idx, _leaf_finish(st, d)):
-            results[i] = r
+    with profiling.span("pipeline.finish"):
+        for idx, st in pend.parts:
+            d = None if detail is None else np.asarray(detail)[list(idx)]
+            for i, r in zip(idx, _leaf_finish(st, d)):
+                results[i] = r
     pend.results = results
     return results
 
@@ -732,8 +729,7 @@ def _leaf_start(req: BatchRequest, dev, streaming: bool):
     dual = st.dual = _dual_tier(might, streaming)
     st.gate = _gate(L, req.gapO, req.gapE, max_sub)
     col_word = np.zeros(B, bool) if dual else np.full(B, word_tier) | might
-    if _counter is not None:
-        _counter.add_pairs(read_len, ref_len)
+    profiling.add_pairs(read_len, ref_len)
     plan = None
     if streaming and PACK is not False:
         # plan as the JAX package's Pallas path does, on the batch padded
@@ -783,6 +779,7 @@ def _leaf_mid(st: _LeafState):
     req, B, ref_len = st.req, st.B, st.ref_len
     with _phase("forward"):
         # ONE stacked download (the only sync of the forward stage)
+        profiling.count("syncs")
         if st.sub_d is not None:
             packed = torch.cat([st.fwd_d, st.sub_d]).cpu().numpy()
             score2, ref_end2 = packed[3].copy(), packed[4].copy()
@@ -813,11 +810,11 @@ def _leaf_mid(st: _LeafState):
             idx_d = _to(st.dev, idx)
             k = len(idx)
             with _phase("rerun"):
-                if _counter is not None:
-                    _counter.add_pairs(st.read_len[idx], ref_len)
+                profiling.add_pairs(st.read_len[idx], ref_len)
                 s_r, er_r, ed_r, mc_r = _forward(
                     st, st.reads_d[idx_d], st.rl_d[idx_d],
                     np.full(k, rerun_word), rerun_word)
+                profiling.count("syncs")
                 packed_r = torch.stack([s_r, er_r, ed_r]).cpu().numpy()
                 score[idx] = packed_r[0]
                 end_ref[idx] = packed_r[1]
@@ -837,6 +834,7 @@ def _leaf_mid(st: _LeafState):
                         mc_r, er_r, _to(st.dev, st.mask_len[idx]), ref_len,
                         torch.full((k,), rerun_word, dtype=torch.bool,
                                    device=st.dev))
+                    profiling.count("syncs")
                     packed2r = torch.stack([s2_r, re2_r]).cpu().numpy()
                     score2[idx] = packed2r[0]
                     ref_end2[idx] = packed2r[1]
@@ -904,7 +902,7 @@ def _finish_launch(st: _LeafState):
         idx = np.nonzero(sel)[0]
         W = _window_len(int((st.end_read[idx] + 1).max()), st.ref_len,
                         req.mat, req.gapO, req.gapE)
-        with _phase("reverse"):
+        with _phase("reverse"), profiling.span("pipeline.reverse_launch"):
             handle = _reverse_launch(st, idx, W, tier)
         rev.append((idx, handle))
     return aligned, want_begin, want_cigar, rev
@@ -926,7 +924,7 @@ def _finish_complete(req: BatchRequest, fin, score, end_ref, end_read,
     read_begin = np.full(B, -1, dtype=np.int32)
     miss_part = np.zeros(B, dtype=bool)
     for idx, handle in rev:
-        with _phase("reverse"):
+        with _phase("reverse"), profiling.span("pipeline.reverse_wait"):
             rb, qb, rev_score = _reverse_complete(handle, idx, end_ref,
                                                   end_read)
         ref_begin[idx] = rb
@@ -1045,6 +1043,7 @@ def _second_best_streaming(st: _LeafState, end_ref, word):
                            torch.where(hasP, firstP_i,
                                        torch.where(hasB, fc, 0)))
     ref_end2 = torch.where(s2 > 0, ref_end2, 0)
+    profiling.count("syncs")
     packed = torch.stack([s2, ref_end2]).cpu().numpy()
     return packed[0].copy(), packed[1].copy()
 
@@ -1103,6 +1102,7 @@ def _reverse_launch(st: _LeafState, idx: np.ndarray, W: int,
 
 def _reverse_complete(handle, idx, end_ref, end_read):
     """Download a _reverse_launch result and derive begins."""
+    profiling.count("syncs")
     packed = handle.cpu().numpy()
     s, er, ed = packed[0], packed[1], packed[2]
     ref_begin = end_ref[idx] - er
@@ -1178,8 +1178,7 @@ def align_batch_sharded(req: BatchRequest, mesh, device=None) -> list:
     rl_d = _to(dev, read_len)
     ml_d = _to(dev, ml)
     gate_thr = _gate(L, req.gapO, req.gapE, max_sub)
-    if _counter is not None:
-        _counter.add_pairs(read_len[:B], ref_len)
+    profiling.add_pairs(read_len[:B], ref_len)
 
     def fwd(rows_d, col_word, seg_word: bool):
         """The sharded forward pass of reads rows_d (device indices, or
@@ -1192,6 +1191,7 @@ def align_batch_sharded(req: BatchRequest, mesh, device=None) -> list:
             mesh, profile, ref_ext_d, sel(rl_d), cm_d, seg_d, ss_d,
             req.gapO, req.gapE, sel(ml_d), ref_len, halo, quirk,
             _to(dev, col_word), max_sub=max_sub, gate=gate_thr)
+        profiling.count("syncs")
         return [x.copy() for x in torch.stack(out).cpu().numpy()]
 
     # speculative tier masks, like align_batch: when the quirk is off the
@@ -1218,8 +1218,7 @@ def align_batch_sharded(req: BatchRequest, mesh, device=None) -> list:
             pad = common.round_up(k, unit) - k
             idx_p = np.concatenate([idx, np.repeat(idx[:1], pad)])
             with _phase("rerun"):
-                if _counter is not None:
-                    _counter.add_pairs(read_len[idx], ref_len)
+                profiling.add_pairs(read_len[idx], ref_len)
                 s_r, er_r, ed_r, s2_r, re2_r = (
                     x[:k] for x in fwd(_to(dev, idx_p),
                                        np.full(len(idx_p), rerun_word),
