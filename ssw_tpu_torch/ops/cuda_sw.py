@@ -166,6 +166,9 @@ def _steps(dev) -> torch.Tensor:
     if key not in _STEPS:
         _STEPS[key] = torch.zeros(gate_mod.DEPTHS + 1, dtype=torch.int64,
                                   device=dev)
+        if _STEPS[key].is_cuda:
+            # zeroed before a launch on another leaf's stream adds to it
+            torch.cuda.current_stream(dev).synchronize()
     return _STEPS[key]
 
 

@@ -238,6 +238,48 @@ def _device_ref(ref_np: np.ndarray, pad_code: int, Rp: int, device):
     return dev
 
 
+class _StreamPool:
+    """Streams of one device that no live leaf holds.  take() hands out a
+    free stream, or makes one with `make` when every stream is held;
+    give() returns a stream once its leaf's last download is done.  Its
+    size follows the leaves in flight (no knob)."""
+
+    def __init__(self, make):
+        self.make, self.free = make, []
+
+    def take(self):
+        return self.free.pop() if self.free else self.make()
+
+    def give(self, stream):
+        self.free.append(stream)
+
+
+_POOLS: "dict[str, _StreamPool]" = {}
+
+
+def _leaf_stream(dev, ref_d):
+    """A pool stream of `dev` for one leaf of the asynchronous path, ordered
+    after the caller's stream (which uploaded the cached target ref_d) and
+    recorded on ref_d, so that a _REF_CACHE eviction cannot hand the
+    target's memory back while the leaf still reads it; None on the CPU.
+
+    torch.cuda.Stream draws on torch's own pool of streams per device and
+    recycles them past its size (32), so beyond that many leaves in flight
+    two leaves may share a stream: their work then serialises, and stays
+    ordered and exact."""
+    if dev.type != "cuda":
+        return None
+    pool = _POOLS.get(str(dev))
+    if pool is None:
+        pool = _POOLS[str(dev)] = _StreamPool(
+            lambda: torch.cuda.Stream(device=dev))
+    stream = pool.take()
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    ref_d.record_stream(stream)
+    profiling.count("leaf_streams")
+    return stream
+
+
 def _prep_core(reads_padded, read_len, mat_ext, col_word, seg_rows, L: int):
     """Profile and batch geometry on the device from the read codes.
 
@@ -541,6 +583,44 @@ def _align_batch(req: BatchRequest, device) -> list:
         return _leaf_finish(st)
 
 
+def _sm_count(dev) -> int:
+    """Streaming multiprocessors of `dev` (0 on the CPU: no schedule)."""
+    if dev.type != "cuda":
+        return 0
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _forward_waves(leaves, sms: int) -> list:
+    """The waves in which a call launches its leaves' forward passes: each
+    wave starts on the device when the previous one's forwards have ended.
+
+    leaves: (rows, L) per leaf, in the plan's order.  The forward kernels
+    give each read (row) a warp and each block four warps, and each block
+    scans the whole target, so a leaf keeps about rows / 4 SMs busy for a
+    time that grows with its lane bucket L.  Blocks of two launches that
+    share an SM each run slower, and a block never moves to an SM that
+    frees: on the H100 the Ion Torrent headline's five leaves, started at
+    once in the plan's order (shortest first), crowded the longest ones'
+    blocks on a few SMs and took as long as one after another (PERF.md
+    §6).  So the leaves are packed into waves of at most `sms` blocks,
+    first fit in descending L (longest first); a leaf of more blocks than
+    SMs is a wave of its own.  sms 0 (the CPU): one wave, in the plan's
+    order.  Returns lists of leaf indices."""
+    if not sms:
+        return [list(range(len(leaves)))]
+    waves = []  # [blocks, leaf indices]
+    for i in sorted(range(len(leaves)), key=lambda i: -leaves[i][1]):
+        need = (leaves[i][0] + 3) // 4
+        for w in waves:
+            if w[0] + need <= sms:
+                w[0] += need
+                w[1].append(i)
+                break
+        else:
+            waves.append([need, [i]])
+    return [w[1] for w in waves]
+
+
 def align_batch_launch(req: BatchRequest, device=None) -> _Pending:
     """Start align_batch asynchronously: queue all device work (uploads,
     forward passes, speculative suboptimal scans) and return without a
@@ -556,10 +636,20 @@ def align_batch_launch(req: BatchRequest, device=None) -> _Pending:
         if plan is not None:
             pend = _Pending()
             pend.B = len(req.reads)
-            for idx, leaf_req, streaming in plan:
-                st = _leaf_start(leaf_req, dev, streaming)
-                assert not isinstance(st, list)  # planner pre-checked guards
-                pend.parts.append((idx, st))
+            states: list = [None] * len(plan)
+            prev: list = []
+            for wave in _forward_waves(
+                    [(len(r.reads), _leaf_plan(r.reads)[1])
+                     for _, r, _ in plan], _sm_count(dev)):
+                for i in wave:
+                    _, leaf_req, streaming = plan[i]
+                    st = _leaf_start(leaf_req, dev, streaming, pooled=True,
+                                     after=[states[j].fwd_done for j in prev])
+                    assert not isinstance(st, list)  # planner's guards
+                    states[i] = st
+                prev = wave
+            # mid and finish take the leaves in the plan's order
+            pend.parts = [(idx, st) for (idx, _, _), st in zip(plan, states)]
     if plan is None:
         return _Pending(results=align_batch(req, dev))
     return pend
@@ -569,7 +659,8 @@ def align_batch_mid(pend: _Pending) -> _Pending:
     if pend.results is None and pend.stage < 1:
         with profiling.span("pipeline.mid"):
             for _, st in pend.parts:
-                _leaf_mid(st)
+                with torch.cuda.stream(st.stream):
+                    _leaf_mid(st)
         pend.stage = 1
     return pend
 
@@ -646,10 +737,10 @@ class _LeafState:
         "Wb", "Wb2",
         "fwd_d", "sub_d", "bm_d",
         "score", "end_ref", "end_read", "score2", "ref_end2", "word",
-        "null_mask", "fin")
+        "null_mask", "fin", "stream", "fwd_done")
 
     def __init__(self):
-        self.fin = None
+        self.fin = self.stream = self.fwd_done = None
 
 
 def _forward(st: _LeafState, reads_d, rl_d, col_word, seg_word: bool):
@@ -663,9 +754,16 @@ def _forward(st: _LeafState, reads_d, rl_d, col_word, seg_word: bool):
                                   valid_len=st.ref_len, gate=st.gate)
 
 
-def _leaf_start(req: BatchRequest, dev, streaming: bool):
+def _leaf_start(req: BatchRequest, dev, streaming: bool,
+                pooled: bool = False, after=()):
     """Queue the leaf's device work: upload, forward pass, and (when not
     streaming) the speculative suboptimal scan.  No host<->device syncs.
+    pooled (the asynchronous path, where several leaves are in flight):
+    every device operation of the leaf, from here to its last download in
+    _leaf_finish, runs on a stream of its own (_leaf_stream, st.stream),
+    so that each download waits for its own leaf alone; its forward
+    launch waits on the device for the events `after` (the previous
+    wave's fwd_done, _forward_waves) and records st.fwd_done.
 
     The suboptimal scan launches before the byte-overflow tier decision is
     known by using the speculative col_word tiers for its window-edge
@@ -711,11 +809,6 @@ def _leaf_start(req: BatchRequest, dev, streaming: bool):
     else:
         st.ref_ext = None
         st.ref_codes = _device_ref(req.ref, n, Rp, dev)
-    st.mat_ext_d = _to(dev, common.extend_matrix(req.mat), torch.int8)
-    # one upload of the read codes serves forward, rerun and reverse passes
-    reads_padded = common.pad_reads(req.reads, L, pad_code=n)
-    st.reads_d = _to(dev, reads_padded, torch.int8)
-    st.rl_d = _to(dev, read_len)
     # speculative tier masks: when the quirk is off, the tiers differ ONLY
     # in col_mask (rows padded to 16 vs 8 per lane block; byte pad rows
     # carry stale diagonal values into maxColumn).  A read whose maximum
@@ -730,6 +823,7 @@ def _leaf_start(req: BatchRequest, dev, streaming: bool):
     st.gate = _gate(L, req.gapO, req.gapE, max_sub)
     col_word = np.zeros(B, bool) if dual else np.full(B, word_tier) | might
     profiling.add_pairs(read_len, ref_len)
+    reads_padded = common.pad_reads(req.reads, L, pad_code=n)
     plan = None
     if streaming and PACK is not False:
         # plan as the JAX package's Pallas path does, on the batch padded
@@ -742,40 +836,59 @@ def _leaf_start(req: BatchRequest, dev, streaming: bool):
         if plan is not None and quirk and not pack.quirk_span_ok(
                 int(plan.slot_len.max()), max_sub, req.gapO, req.gapE):
             plan = None  # the quirk's sub-slot block bias would not be exact
-    if plan is not None:
-        pprof, tables = _packed_inputs(plan, reads_padded[keep],
-                                       read_len[keep], B, n, st.mat_ext_d)
-        score_d, er_d, ed_d, mc_d = _packed_forward(
-            plan, pprof, st.ref_codes, tables, req.gapO, req.gapE, max_sub,
-            ref_len, quirk, bool(word_tier), dual)
-    elif dual:
-        profile, cm_d, seg_d, ss_d = _prep_device(
-            st.reads_d, st.rl_d, st.mat_ext_d, _to(dev, col_word), L,
-            word_tier)
-        score_d, er_d, ed_d, mc_d = cuda_sw.forward_shared(
-            profile, st.ref_codes, st.rl_d, cm_d, seg_d, ss_d, req.gapO,
-            req.gapE, quirk, max_sub=max_sub, blockmax=True,
-            valid_len=ref_len, wmask=_word_mask(st.rl_d, L), gate=st.gate)
-    else:
-        score_d, er_d, ed_d, mc_d = _forward(st, st.reads_d, st.rl_d,
-                                             col_word, word_tier)
-    st.fwd_d = torch.stack([score_d, er_d, ed_d])
-    if streaming:
-        st.bm_d, st.sub_d = mc_d, None  # (B, nblk) block maxima, for mid
+    # the target went up on the caller's stream (_device_ref: shared by
+    # leaves and calls); the rest of the leaf's device work goes on the
+    # leaf's own stream when pooled
+    if pooled:
+        st.stream = _leaf_stream(dev,
+                                 st.ref_ext if streaming else st.ref_codes)
+    with torch.cuda.stream(st.stream):
+        st.mat_ext_d = _to(dev, common.extend_matrix(req.mat), torch.int8)
+        # one upload of the read codes serves forward, rerun and reverse
+        # passes
+        st.reads_d = _to(dev, reads_padded, torch.int8)
+        st.rl_d = _to(dev, read_len)
+        for ev in after:
+            st.stream.wait_event(ev)
+        if plan is not None:
+            pprof, tables = _packed_inputs(plan, reads_padded[keep],
+                                           read_len[keep], B, n, st.mat_ext_d)
+            score_d, er_d, ed_d, mc_d = _packed_forward(
+                plan, pprof, st.ref_codes, tables, req.gapO, req.gapE,
+                max_sub, ref_len, quirk, bool(word_tier), dual)
+        elif dual:
+            profile, cm_d, seg_d, ss_d = _prep_device(
+                st.reads_d, st.rl_d, st.mat_ext_d, _to(dev, col_word), L,
+                word_tier)
+            score_d, er_d, ed_d, mc_d = cuda_sw.forward_shared(
+                profile, st.ref_codes, st.rl_d, cm_d, seg_d, ss_d, req.gapO,
+                req.gapE, quirk, max_sub=max_sub, blockmax=True,
+                valid_len=ref_len, wmask=_word_mask(st.rl_d, L),
+                gate=st.gate)
+        else:
+            score_d, er_d, ed_d, mc_d = _forward(st, st.reads_d, st.rl_d,
+                                                 col_word, word_tier)
+        st.fwd_d = torch.stack([score_d, er_d, ed_d])
+        if st.stream is not None:
+            st.fwd_done = torch.cuda.Event()
+            st.fwd_done.record(st.stream)
+        if streaming:
+            st.bm_d, st.sub_d = mc_d, None  # (B, nblk) block maxima, for mid
+            return st
+        # speculative suboptimal launch (col_word edges, see docstring);
+        # the big (B, Rp) maxima buffer is consumed right here in the
+        # device queue and freed — only (B,) results stay in flight
+        s2_d, re2_d = scan_sw.second_best_batch(
+            mc_d, er_d, _to(dev, st.mask_len), ref_len, _to(dev, col_word))
+        del mc_d
+        st.bm_d, st.sub_d = None, torch.stack([s2_d, re2_d])
         return st
-    # speculative suboptimal launch (col_word edges, see docstring); the
-    # big (B, Rp) maxima buffer is consumed right here in the device queue
-    # and freed — only (B,) results stay in flight
-    s2_d, re2_d = scan_sw.second_best_batch(
-        mc_d, er_d, _to(dev, st.mask_len), ref_len, _to(dev, col_word))
-    del mc_d
-    st.bm_d, st.sub_d = None, torch.stack([s2_d, re2_d])
-    return st
 
 
 def _leaf_mid(st: _LeafState):
     """Download forward + speculative suboptimal results, resolve tier
-    re-runs, and queue the begin-finding reverse passes."""
+    re-runs, and queue the begin-finding reverse passes, on the current
+    stream (the caller makes st.stream current)."""
     req, B, ref_len = st.req, st.B, st.ref_len
     with _phase("forward"):
         # ONE stacked download (the only sync of the forward stage)
@@ -869,9 +982,17 @@ def _leaf_mid(st: _LeafState):
 
 
 def _leaf_finish(st: _LeafState, detail=None) -> list:
-    return _finish_complete(
-        st.req, st.fin, st.score, st.end_ref, st.end_read, st.score2,
-        st.ref_end2, st.null_mask, detail=detail)
+    """Download the reverse passes and finish the results on the leaf's
+    stream, then hand the stream back to its pool: the leaf's last
+    download is done."""
+    with torch.cuda.stream(st.stream):
+        results = _finish_complete(
+            st.req, st.fin, st.score, st.end_ref, st.end_read, st.score2,
+            st.ref_end2, st.null_mask, detail=detail)
+    if st.stream is not None:
+        _POOLS[str(st.dev)].give(st.stream)
+        st.stream = None
+    return results
 
 
 def _finish_launch(st: _LeafState):
