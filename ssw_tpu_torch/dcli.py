@@ -34,11 +34,15 @@ card), or `devices=` (main's argument: the tests pass [cpu] * 8, and
 chip_smoke.py [cuda:0] * 4 to run the sequence shards on one card), or
 [device] with device= alone.  With --coordinator the hosts join a gloo
 process group (parallel/multihost.py), left again before main returns.
+
+Spans (profiling): `dcli.align`, the root of an align run (target parse,
+reads, every batch), and `dcli.merge`, the root of a merge.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 import time
@@ -46,7 +50,7 @@ import time
 import torch
 
 from ssw_tpu_torch import cli as cli_mod
-from ssw_tpu_torch import pipeline
+from ssw_tpu_torch import pipeline, profiling
 from ssw_tpu_torch.core.encoding import (AA_TABLE, BLOSUM50, NT_TABLE,
                                          dna_matrix, encode_with_table,
                                          parse_matrix_file,
@@ -119,7 +123,7 @@ def main(argv=None, out=None, err=None, device=None, devices=None) -> int:
     args = _build_parser().parse_args(argv)
 
     if args.mode == "merge":
-        with open(args.out, "w") as f:
+        with profiling.span("dcli.merge"), open(args.out, "w") as f:
             n = multihost.merge_shards(args.shards, f)
         err.write(f"merged {n} records into {args.out}\n")
         return 0
@@ -147,6 +151,31 @@ def main(argv=None, out=None, err=None, device=None, devices=None) -> int:
 
 
 def _align(args, out, err, local) -> int:
+    # --profile or SSW_TPU_PROFILE=1: the report line at exit;
+    # SSW_TPU_TRACE=<dir>: a torch.profiler trace with the spans on it
+    trace_dir = os.environ.get("SSW_TPU_TRACE")
+    report = args.profile or bool(os.environ.get("SSW_TPU_PROFILE"))
+    counter = profiling.GcupsCounter() if report or trace_dir else None
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as ctx:
+        if counter is not None:
+            ctx.enter_context(pipeline.profiled(counter))
+            ctx.enter_context(profiling.trace(trace_dir))
+        ctx.enter_context(profiling.span("dcli.align"))
+        rc, n_done, shard_path = _align_run(args, err, local)
+    if rc:
+        return rc
+    dt = time.perf_counter() - t0
+    err.write(f"host {args.host_id}/{args.num_hosts}: {n_done} reads in "
+              f"{dt:.3f}s ({n_done / dt if dt else 0:.1f} reads/s) -> "
+              f"{shard_path}\n")
+    if report:
+        err.write(counter.report() + "\n")
+    return 0
+
+
+def _align_run(args, err, local):
+    """The align mode's work: (return code, reads written, shard path)."""
     mat, table, n = _setup_matrix(args, err)
     sam = args.sam
     opts = dict(match=args.match, mismatch=args.mismatch,
@@ -159,7 +188,7 @@ def _align(args, out, err, local) -> int:
         # reference/cli parity (ref: src/main.c:482-491)
         err.write("Reverse complement alignment is not available for "
                   "protein sequences. \n")
-        return 1
+        return 1, 0, None
 
     targets = read_fastx_all(args.target)
     enc_targets = [encode_with_table(t.seq, table) for t in targets]
@@ -208,30 +237,10 @@ def _align(args, out, err, local) -> int:
         lines += [f"@SQ\tSN:{t.name}\tLN:{len(t.seq)}\n" for t in targets]
         header_text = "".join(lines)
 
-    import contextlib
-
-    from ssw_tpu_torch import profiling
-
-    # --profile or SSW_TPU_PROFILE=1: the report line at exit;
-    # SSW_TPU_TRACE=<dir>: a torch.profiler trace with the spans on it
-    trace_dir = os.environ.get("SSW_TPU_TRACE")
-    report = args.profile or bool(os.environ.get("SSW_TPU_PROFILE"))
-    counter = profiling.GcupsCounter() if report or trace_dir else None
-    t0 = time.perf_counter()
-    with contextlib.ExitStack() as ctx:
-        if counter is not None:
-            ctx.enter_context(pipeline.profiled(counter))
-            ctx.enter_context(profiling.trace(trace_dir))
-        records = read_fastx(args.query)
-        n_done = multihost.run_sharded(records, plan, align_fn, shard_path,
-                                       journal, header=header_text or None)
-    dt = time.perf_counter() - t0
-    err.write(f"host {args.host_id}/{args.num_hosts}: {n_done} reads in "
-              f"{dt:.3f}s ({n_done / dt if dt else 0:.1f} reads/s) -> "
-              f"{shard_path}\n")
-    if report:
-        err.write(counter.report() + "\n")
-    return 0
+    records = read_fastx(args.query)
+    n_done = multihost.run_sharded(records, plan, align_fn, shard_path,
+                                   journal, header=header_text or None)
+    return 0, n_done, shard_path
 
 
 if __name__ == "__main__":

@@ -20,20 +20,41 @@ shard_map becomes a loop over the mesh's cells):
     scan's window and tie semantics (ref: src/ssw.c:368-381), merged the
     same way.
 
-Every cell's forward launch is queued before any result is read; the
-per-cell candidates are gathered on mesh.devices[0, 0].  Each cell's (Bl,
+Every cell's inputs are staged on its device before any forward is
+queued, and every forward before any result is read, so that on distinct
+cards the cells' forwards run at once: a copy between two cards runs on
+the source card's stream, and a copy queued behind the home cell's forward
+would hold the other cards' forwards back until it ends.  For the same
+reason the suboptimal scans' inputs are copied before any scan is queued,
+and the home card's scan is queued last.  The per-cell candidates are
+gathered on mesh.devices[0, 0].  Each cell's (Bl,
 halo + C) int16 maxima stay where they were computed, and live until the
 global best hit is known; the suboptimal scan reduces them in int16 and in
 row chunks (scan_sw.second_best_batch), so no (Bl, C) int32 copy is made.
+
+Spans and counts (profiling): `dist.launch` (the uploads and the D x S
+forward enqueues), `dist.merge` (the gathers, the best-hit merge, the
+suboptimal scans and their merge; enqueues only, the caller's download
+waits), `shard_forwards` (one per cell's forward) and `peer_bytes` (bytes
+copied between two distinct devices: 0 on a mesh of one device).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ssw_tpu_torch import profiling
 from ssw_tpu_torch.ops import cuda_sw, scan_sw
 
 INT_MAX = 2 ** 31 - 1
+
+
+def _move(x, dev):
+    """x on dev without blocking the host; a copy between two distinct
+    devices adds its bytes to the `peer_bytes` count (any other adds 0)."""
+    profiling.count("peer_bytes", x.numel() * x.element_size()
+                    if x.device != dev else 0)
+    return x.to(dev, non_blocking=True)
 
 
 def _merge_best(score_g, idx_g):
@@ -79,53 +100,64 @@ def sharded_forward(mesh, profile, ref_ext, read_len, col_mask, seg_id,
     word_mask = torch.as_tensor(word_mask, dtype=torch.bool).to(
         profile.device)
 
-    # queue every cell's forward launch before reading any result
-    cells = []
-    for d in range(D):
-        rows = slice(d * Bl, (d + 1) * Bl)
-        for s in range(S):
-            dev = mesh.devices[d, s]
-            start = s * C  # first owned global column
-            put = lambda x: x[rows].to(dev, non_blocking=True)
-            # global column index of each local column; warm-up gets
-            # idx < start
-            idxs = (torch.arange(halo + C, dtype=torch.int32, device=dev)
-                    + (start - halo))
-            owned = idxs >= start
-            cells.append(list(cuda_sw.forward_shared_gated(
-                put(profile), ref_ext[start:start + halo + C].to(dev),
-                idxs, owned, put(read_len), put(col_mask), put(seg_id),
-                put(seg_start), gapO, gapE, quirk, max_sub=max_sub,
-                gate=gate)))
+    with profiling.span("dist.launch"):
+        # stage every cell's inputs, then queue every forward
+        staged = []
+        for d in range(D):
+            rows = slice(d * Bl, (d + 1) * Bl)
+            for s in range(S):
+                dev = mesh.devices[d, s]
+                start = s * C  # first owned global column
+                put = lambda x: _move(x[rows], dev)
+                # global column index of each local column; warm-up gets
+                # idx < start
+                idxs = (torch.arange(halo + C, dtype=torch.int32,
+                                     device=dev) + (start - halo))
+                staged.append((
+                    put(profile), _move(ref_ext[start:start + halo + C], dev),
+                    idxs, idxs >= start, put(read_len), put(col_mask),
+                    put(seg_id), put(seg_start)))
+        cells = [list(cuda_sw.forward_shared_gated(
+            *args, gapO, gapE, quirk, max_sub=max_sub, gate=gate))
+            for args in staged]
+        profiling.count("shard_forwards", len(cells))
 
-    outs = []
-    for d in range(D):
-        rows = slice(d * Bl, (d + 1) * Bl)
-        mine = cells[d * S:(d + 1) * S]
-        # merge the best hit over seq: (score desc, end_ref asc), payload
-        # end_read
-        gather = lambda k: torch.stack([c[k].to(home) for c in mine])
-        g_score, g_end_ref, win = _merge_best(gather(0), gather(1))
-        g_end_read = gather(2)[win, torch.arange(Bl, device=home)]
-        # suboptimal scan on each cell's owned columns against the global
-        # window: the scan over global columns start.. equals the scan over
-        # local columns 0.. with every edge shifted by start
-        s2_g, i2_g = [], []
-        for s, cell in enumerate(mine):
-            dev = mesh.devices[d, s]
-            start = s * C
-            s2, i2 = scan_sw.second_best_batch(
-                cell[3][:, halo:], g_end_ref.to(dev) - start,
-                mask_len[rows].to(dev), ref_len - start,
-                word_mask[rows].to(dev))
-            cell[3] = None  # the maxima are read; free them
-            s2_g.append(s2.to(home))
-            i2_g.append((i2 + start).to(home))
-        score2, i2_best, _ = _merge_best(torch.stack(s2_g),
-                                         torch.stack(i2_g))
-        ref_end2 = torch.where(score2 > 0, i2_best, 0)
-        no2 = mask_len[rows].to(home) < 15
-        score2 = torch.where(no2, 0, score2)
-        ref_end2 = torch.where(no2, -1, ref_end2)
-        outs.append((g_score, g_end_ref, g_end_read, score2, ref_end2))
-    return tuple(torch.cat([o[k] for o in outs]) for k in range(5))
+    with profiling.span("dist.merge"):
+        outs = []
+        for d in range(D):
+            rows = slice(d * Bl, (d + 1) * Bl)
+            mine = cells[d * S:(d + 1) * S]
+            # merge the best hit over seq: (score desc, end_ref asc),
+            # payload end_read
+            gather = lambda k: torch.stack([_move(c[k], home) for c in mine])
+            g_score, g_end_ref, win = _merge_best(gather(0), gather(1))
+            g_end_read = gather(2)[win, torch.arange(Bl, device=home)]
+            # suboptimal scan on each cell's owned columns against the
+            # global window: the scan over global columns start.. equals
+            # the scan over local columns 0.. with every edge shifted by
+            # start.  Every cell's window inputs are copied before any
+            # scan is queued, and the home card's scan is queued last: a
+            # copy queued on the home stream behind a scan would hold the
+            # other cards' scans back until that scan ends.
+            devs = [mesh.devices[d, s] for s in range(S)]
+            window = [(_move(g_end_ref, dev) - s * C,
+                       _move(mask_len[rows], dev),
+                       _move(word_mask[rows], dev))
+                      for s, dev in enumerate(devs)]
+            found = [None] * S
+            for s in sorted(range(S), key=lambda s: devs[s] == home):
+                end, ml, wm = window[s]
+                s2, i2 = scan_sw.second_best_batch(
+                    mine[s][3][:, halo:], end, ml, ref_len - s * C, wm)
+                mine[s][3] = None  # the maxima are read; free them
+                found[s] = (s2, i2 + s * C)
+            s2_g = [_move(s2, home) for s2, _ in found]
+            i2_g = [_move(i2, home) for _, i2 in found]
+            score2, i2_best, _ = _merge_best(torch.stack(s2_g),
+                                             torch.stack(i2_g))
+            ref_end2 = torch.where(score2 > 0, i2_best, 0)
+            no2 = _move(mask_len[rows], home) < 15
+            score2 = torch.where(no2, 0, score2)
+            ref_end2 = torch.where(no2, -1, ref_end2)
+            outs.append((g_score, g_end_ref, g_end_read, score2, ref_end2))
+        return tuple(torch.cat([o[k] for o in outs]) for k in range(5))

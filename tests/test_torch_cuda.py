@@ -492,6 +492,48 @@ def test_sharded_pipeline_on_card_equals_cpu(card):
     assert [vars(a) for a in got] == [vars(b) for b in want]
 
 
+def test_sharded_pipeline_over_distinct_cards(card):
+    """pipeline.align_batch_sharded over a 1 x n mesh of n distinct cards
+    (up to four) against the same mesh on [cuda:0] * n and align_batch on
+    the card, field by field; only the distinct cards copy between
+    devices (peer_bytes) and both launch one forward per shard."""
+    from ssw_tpu_torch import profiling
+    from ssw_tpu_torch.parallel import mesh as mesh_lib
+
+    n = min(torch.cuda.device_count(), 4)
+    if n < 2:
+        pytest.skip("needs two or more CUDA cards")
+    rng = np.random.default_rng(13)
+    ref = rng.integers(0, 4, 40000).astype(np.int8)
+    reads = []
+    for _ in range(300):
+        ln = int(rng.integers(30, 200))
+        s = int(rng.integers(0, len(ref) - ln))
+        r = ref[s:s + ln].copy()
+        m = rng.random(ln) < 0.05
+        r[m] = rng.integers(0, 4, int(m.sum()))
+        reads.append(r)
+    req = pipeline.BatchRequest(reads=reads, ref=ref, mat=dna_matrix(2, 2),
+                                gapO=3, gapE=1,
+                                mask_len=[max(len(r) // 2, 15)
+                                          for r in reads])
+    got = {}
+    for name, devs in (("distinct", [torch.device("cuda", i)
+                                     for i in range(n)]),
+                       ("one", [card] * n)):
+        c = profiling.GcupsCounter()
+        with pipeline.profiled(c):
+            res = pipeline.align_batch_sharded(
+                req, mesh_lib.make_mesh(data=1, seq=n, devices=devs))
+        got[name] = ([vars(a) for a in res], c.counts)
+    want = [vars(a) for a in pipeline.align_batch(req, device=card)]
+    assert got["distinct"][0] == want and got["one"][0] == want
+    assert got["distinct"][1]["peer_bytes"] > 0
+    assert got["one"][1]["peer_bytes"] == 0
+    assert got["distinct"][1]["shard_forwards"] == \
+        got["one"][1]["shard_forwards"] >= n
+
+
 def test_i16_k14_fault_input_pinned(card):
     """The input on which the int16 kernel at K = 14 once went wrong
     (ROADMAP §C: chip_smoke.py phase 3, seed 106, B 43, L 448, R 778): the
