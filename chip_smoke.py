@@ -15,7 +15,8 @@ Phases (any failure exits non-zero before the final line):
      blockmax mode of both forward kernels (valid_len inside the last
      blocks, score/ends equal to the base mode's on the same inputs); the
      packed kernel (both tiers' slots, the quirk, dual, degenerate reads,
-     W 256..4096, up to 64 slots) and the dual mode of both forward tiers,
+     W 256..4096, up to 64 slots; whole and with the target split into 2
+     and 3 stretches) and the dual mode of both forward tiers,
      also equal to the unpacked blockmax kernel channel by channel; the
      bounded-radius gate (phase_gate) in every forward kernel and mode, K 2
      to 34, the card's tiers and the JAX plan's, against the gated plain
@@ -123,7 +124,10 @@ Phases (any failure exits non-zero before the final line):
      kernels in turns against the column-scan body of the same mode on
      the same inputs (the config-4 int32, int16 base and blockmax leaves,
      the Ion x20 int32 blockmax and dual leaves, the Ion int16 dual leaf,
-     the config-4 packed leaf, the Ion L = 192 packed dual leaf, the
+     the config-4 packed leaf, the Ion L = 192 packed dual leaf (its
+     slice also split into the stretches of the whole leaf's launch,
+     against the plain version; its row counts the main path's split
+     launches, each with a launch of the merge kernel), the
      protein-golden int32 launch with the quirk, the int32 owned launch,
      the largest config-5 owned shard, the reverse pass and the 10 Mbp
      window re-run), packed leaves
@@ -539,7 +543,8 @@ def phase_packed(torch, dev, worst):
     plain versions and against the unpacked blockmax kernel, channel by
     channel."""
     from ssw_tpu_torch.core.encoding import BLOSUM50
-    from ssw_tpu_torch.ops import common, cuda_sw, scan_sw
+    from ssw_tpu_torch.leaf_timing import pinned_stretches
+    from ssw_tpu_torch.ops import common, cuda_sw, pack, scan_sw
 
     rng = np.random.default_rng(77)
     q_mat = dna_mat(2, 4)  # min -4 < -2*gapE: the quirk is observable
@@ -587,6 +592,22 @@ def phase_packed(torch, dev, worst):
                 f"dual={dual}: max_abs_err {err}")
             check(err == 0, f"packed {label} dual={dual}: kernel != plain "
                   f"(max_abs_err {err})")
+            # the target split into stretches (the rule pinned), each
+            # launch also running the merge kernel
+            for P in (2, 3):
+                split = cuda_sw.split_counts()[name]
+                with pinned_stretches(P):
+                    got_p = cuda_sw.forward_shared_packed(*pa, gO, gE, **kw)
+                torch.cuda.synchronize()
+                serr = max_abs_diff(torch, got_p, want)
+                worst[name] = max(worst[name], serr)
+                P_eff = pack.stretch_bounds(vl, P)[0]
+                log(f"  packed {label} dual={dual} split into {P_eff} "
+                    f"stretches: max_abs_err {serr}")
+                check(serr == 0 and P_eff > 1
+                      and cuda_sw.split_counts()[name] == split + 1,
+                      f"packed {label} dual={dual} split into {P_eff} "
+                      f"stretches: kernel != plain (max_abs_err {serr})")
             same_as_scan_body(
                 f"packed {label} dual={dual}", got,
                 lambda: cuda_sw.forward_shared_packed(*pa, gO, gE,
@@ -2284,8 +2305,9 @@ def in_turns(torch, fa, fb, reps):
 
 
 def phase_timing(torch, dev, rec, worst, launches, gated_launches,
-                 parity_launches, clock_mhz, slice_cols):
-    from ssw_tpu_torch.ops import cuda_sw, scan_sw
+                 parity_launches, split_launches, clock_mhz, slice_cols):
+    from ssw_tpu_torch.leaf_timing import pinned_stretches
+    from ssw_tpu_torch.ops import cuda_sw, pack, scan_sw
     from ssw_tpu_torch.tools import _common
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -2553,7 +2575,8 @@ def phase_timing(torch, dev, rec, worst, launches, gated_launches,
 
     def packed_row(name, tag=None):
         """The packed kernel at its largest main-path call: slice vs plain,
-        bound, and the whole leaf."""
+        also split into the stretches the whole leaf's launch has (on the
+        slice the rule keeps P = 1), bound, and the whole leaf."""
         args, kw, t = call(name, tag)
         prof, ref = args[:2]
         R = int(ref.numel())
@@ -2572,6 +2595,22 @@ def phase_timing(torch, dev, rec, worst, launches, gated_launches,
         torch.cuda.synchronize()
         err = max_abs_diff(torch, got, want)
         check(err == 0, f"{name} at the main-path shape: max_abs_err {err}")
+        # the whole leaf's stretches, on the slice
+        leaf_P = cuda_sw.packed_launch(
+            int(args[5].numel()), kw.get("slot_max") or pack.slot_max(
+                args[3]), int(prof.shape[1]),
+            min(kw.get("valid_len") or R, R), kw.get("max_sub"), args[6],
+            args[7], bool(kw.get("quirk")), bool(kw.get("dual")), dev)[0]
+        slice_P = pack.stretch_bounds(cols, leaf_P)[0]
+        with pinned_stretches(leaf_P):
+            got = cuda_sw.forward_shared_packed(*sl_args, **kw)
+        torch.cuda.synchronize()
+        serr = max_abs_diff(torch, got, want)
+        log(f"  {name}: the leaf's launch has {leaf_P} stretches a read; "
+            f"the slice split into {slice_P}: max_abs_err {serr}")
+        check(serr == 0, f"{name} at the main-path shape split into "
+              f"{slice_P} stretches: max_abs_err {serr}")
+        err = max(err, serr)
         b_ms, b_by = packed_bound(args, kw, cols)
         S = int(args[2].shape[1])
         row = {
@@ -2583,6 +2622,10 @@ def phase_timing(torch, dev, rec, worst, launches, gated_launches,
                         + "; set-up _forward_call :445-481, pallas_call at "
                         ":557; wrapper forward_shared_ref_packed :1139)",
             "launches": launches[name],
+            # the launches split into stretches, each with one launch of
+            # sw_wave_packed_merge_kernel (phases 4-5g)
+            "merge_launches": split_launches[name],
+            "leaf_stretches": leaf_P, "slice_stretches": slice_P,
             "max_abs_err": max(err, worst[name]),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None, "scan_body_ms": scan_ms,
@@ -2632,8 +2675,14 @@ def phase_timing(torch, dev, rec, worst, launches, gated_launches,
                          k: v for k, v in ukw.items() if k != "max_sub"}})
     rows.append(row)
     # packed dual: the Ion Torrent L = 192 group (phase 5c, PACK = True),
-    # beside the unpacked dual leaf and the blockmax leaf of the same reads
+    # beside the unpacked dual leaf and the blockmax leaf of the same reads;
+    # Ion's leaves fill the card by splitting the target
     row, pa, pkw = packed_row("forward_shared_packed_dual", "5c4")
+    check(row["leaf_stretches"] > 1 and row["slice_stretches"] > 1
+          and row["merge_launches"] > 0,
+          f"the Ion Torrent packed dual leaf ran unsplit: "
+          f"{row['leaf_stretches']} stretches, "
+          f"{row['merge_launches']} split launches on the main path")
     ua, ukw, _ = call("forward_shared_i16_dual", "5c2")
     pack_vs_unpacked(row, "ion_L192_leaf_vs_int16_dual", (pa, pkw),
                      (ua, ukw), {"int16_blockmax": {
@@ -3489,6 +3538,7 @@ def main() -> int:
             gated = cuda_sw.gated_counts()
             libraries = cuda_sw.library_counts()
             parity = cuda_sw.parity_counts()
+            split = cuda_sw.split_counts()
             # phases 5h-5i, the measurement entry points: counts from 0
             cuda_sw.reset_launches()
             t0 = time.perf_counter()
@@ -3517,7 +3567,8 @@ def main() -> int:
             check(name not in gated or gated[name] > 0,
                   f"{name} never ran with the gate on the main path")
         log(f"main-path launches by library: {json.dumps(libraries)}; "
-            f"parity probe: {json.dumps(parity)}")
+            f"parity probe: {json.dumps(parity)}; split into stretches "
+            f"(each with a merge launch): {json.dumps(split)}")
         check(parity["_i16_parity"] == 3, f"the int16 parity probe made "
               f"{parity['_i16_parity']} launches on the main path, not 3")
         check_designs(launches, gated, libraries)
@@ -3527,8 +3578,8 @@ def main() -> int:
         t0 = time.perf_counter()
         log("phase 6 kernel timing at main-path shapes:")
         kernels = phase_timing(torch, dev, rec, worst, launches, gated,
-                               parity["_i16_parity"], float(clock or 1980),
-                               SLICE_COLS)
+                               parity["_i16_parity"], split,
+                               float(clock or 1980), SLICE_COLS)
         for row in kernels:
             row["launches_5h_5i"] = entry.get(row["name"], 0)
             row["launches"] += row["launches_5h_5i"]

@@ -29,8 +29,21 @@
 // The wrapper enforces the QBUMP span guard, under which the segmented G
 // chain equals the twins' biased prefix max.
 //
+// Stretches (ops/pack.py).  A read may run as P warps, a second kernel
+// parameter (SplitArgs; PackArgs stays as it is, ROADMAP §C1): warp p owns
+// the columns [p*C, min((p+1)*C, valid_len)), C a multiple of kBlockCols,
+// and starts from zero state `halo` columns before them (warp 0 at column
+// 0).  Halo columns go through the ring with their codes but without
+// kTake, and feed no block maximum, so every block maximum is written by
+// the one warp that owns its block; the last warp writes the partial block
+// and the zero blocks past valid_len.  With P > 1 each warp leaves its best
+// hit in SplitArgs::part and sw_wave_packed_merge_kernel merges a read's P
+// hits in stretch order (a later stretch only with a higher score), which
+// is merge_best's order: score, then column, then row.
+//
 // What bounds it: integer issue (sw_wave.cuh); a read costs what it costs
-// unpacked at a lane width of 32*K >= its slot.
+// unpacked at a lane width of 32*K >= its slot.  A launch of few reads
+// splits the target until its warps fill the card (pack.stretch_rule).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC -o libsw_wave_packed.so sw_wave_packed.cu
@@ -55,7 +68,15 @@ struct PackArgs {
   int32_t* end_ref;         // (B,)
   int32_t* end_read;        // (B,)
   int32_t* blockmax;        // (B, nblk), dual (B, 2, nblk)
-  int32_t* scratch;         // global row: per read 5*Lw planes + the profile
+  int32_t* scratch;         // global row: per warp 5*Lw planes + the profile
+};
+
+// The target split into stretches; P = 1 is the whole target in one warp.
+struct SplitArgs {
+  int P;          // warps (stretches) per read
+  int C;          // columns per stretch, a multiple of kBlockCols
+  int halo;       // warm-up columns before a stretch, kBlockCols multiple
+  int32_t* part;  // P > 1: (3, B*P) score, end_ref, end_read per stretch
 };
 
 // The slot's state in registers (K known at compile time).
@@ -144,12 +165,13 @@ template <int KT, bool Dual> struct RowSel { using type = RegRow<KT, Dual>; };
 template <bool Dual> struct RowSel<0, Dual> { using type = GlobRow; };
 
 template <int KT, bool Quirk, bool Dual>
-__global__ void sw_wave_packed_kernel(const PackArgs a) {
+__global__ void sw_wave_packed_kernel(const PackArgs a, const SplitArgs sp) {
   static_assert(!(Dual && Quirk), "dual needs the quirk off");
   extern __shared__ __align__(16) unsigned char smem[];
   const int wpb = blockDim.x >> 5, w = threadIdx.x >> 5, t = threadIdx.x & 31;
-  const int b = blockIdx.x * wpb + w;
-  if (b >= a.B) return;  // whole warps only; no block barriers below
+  const int g = blockIdx.x * wpb + w;  // the warp: read b, stretch p
+  if (g >= a.B * sp.P) return;  // whole warps only; no block barriers below
+  const int b = g / sp.P, p = g - b * sp.P;
   const int Lw = a.Lw, n1 = a.n1;
   const int K = KT > 0 ? KT : Lw / 32;
   const int KK = KT > 0 ? KT : K;
@@ -161,7 +183,7 @@ __global__ void sw_wave_packed_kernel(const PackArgs a) {
   int* ring = reinterpret_cast<int*>(
       wsm + (KT > 0 ? wave::align16(size_t(n1 + 1) * Lw * 4) : 0));
   int* srow = a.scratch
-                  ? a.scratch + size_t(b) * (kPlanes * Lw +
+                  ? a.scratch + size_t(g) * (kPlanes * Lw +
                                              ((n1 + 1) * Lw + 3) / 4)
                   : nullptr;
   using Row = typename RowSel<KT, Dual>::type;
@@ -181,6 +203,18 @@ __global__ void sw_wave_packed_kernel(const PackArgs a) {
   }
 
   const int vl = min(a.valid_len, a.R);
+  // this warp's stretch: it scans [c0, own1) and owns [own0, own1); ring
+  // slots, steps and c31 below count columns from c0 (a multiple of 8)
+  const bool last = p == sp.P - 1;
+  const int own0 = p * sp.C;
+  const int own1 = last ? vl : own0 + sp.C;
+  const int c0 = max(own0 - sp.halo, 0);
+  const int ncol = own1 - c0;
+  // every warp steps as far as the longest stretch: a trip count from the
+  // kernel's parameters alone keeps the loop provably warp-uniform, which
+  // the shuffles need to compile without collective fallbacks (a per-warp
+  // bound made the step about 35 % slower); columns past ncol are poison
+  const int nstep = sp.P == 1 ? vl : min(sp.C + sp.halo, vl);
   const int poison = n1;
   ring[32 + t] = poison;
   __syncwarp();
@@ -197,8 +231,9 @@ __global__ void sw_wave_packed_kernel(const PackArgs a) {
   const int nblk = (a.R + wave::kBlockCols - 1) / wave::kBlockCols;
   int32_t* bm_row = a.blockmax + size_t(b) * nblk * (Dual ? 2 : 1);
 
-  // steps s = -1 .. vl + 30 (and up to 7 more): lane t at column s - t
-  for (int s8 = -1; s8 < vl + 31; s8 += wave::kUnroll) {
+  // steps s = -1 .. nstep + 30 (and up to 7 more): lane t at column
+  // c0 + s - t
+  for (int s8 = -1; s8 < nstep + 31; s8 += wave::kUnroll) {
 #pragma unroll
     for (int u = 0; u < wave::kUnroll; ++u) {
       const int s = s8 + u;
@@ -206,7 +241,9 @@ __global__ void sw_wave_packed_kernel(const PackArgs a) {
         __syncwarp();
         const int col = s8 + 1 + t;
         ring[col & (wave::kRing - 1)] =
-            col < vl ? a.ref[col] | wave::kTake : poison;
+            col < ncol ? a.ref[c0 + col] | (c0 + col >= own0 ? wave::kTake
+                                                             : 0)
+                       : poison;
         __syncwarp();
       }
       const int ent = ent_next;
@@ -234,96 +271,154 @@ __global__ void sw_wave_packed_kernel(const PackArgs a) {
       // this lane's tracker: only when its maximum rises
       if ((ent & wave::kTake) && mo > v) {
         v = mo;
-        vc = s - t;
+        vc = c0 + s - t;
         int jm = Lw;
 #pragma unroll
         for (int k = KK - 1; k >= 0; --k)
           if (t * KK + k < rl && r.H(k) == mo) jm = t * KK + k;
         jr = jm;
       }
-      // lane 31: column c31 is complete (before column 0: co = 0)
+      // lane 31: column c0 + c31 is complete (before column 0: co = 0)
       const int c31 = s - 31;
-      if (c31 < vl) {
-        bm = max(bm, co);
-        if constexpr (Dual) bw = max(bw, wo);
-      }
-      // c31 = u mod 8 (s8 = 7 mod 8): a block ends only at u = 7
+      const bool in = c31 < ncol;
+      bm = in ? max(bm, co) : bm;
+      if constexpr (Dual) bw = in ? max(bw, wo) : bw;
+      // c31 = u mod 8 (s8 = 7 mod 8): a block ends only at u = 7; the
+      // halo's whole blocks are dropped
       if (u == wave::kUnroll - 1 &&
-          (c31 & (wave::kBlockCols - 1)) == wave::kBlockCols - 1 &&
-          c31 < vl) {
-        const int blk = c31 / wave::kBlockCols;
-        if (t == 31) {
+          (c31 & (wave::kBlockCols - 1)) == wave::kBlockCols - 1) {
+        const int blk = (c0 + c31) / wave::kBlockCols;
+        if (t == 31 && in && c0 + c31 >= own0) {
           bm_row[blk] = bm;
           if constexpr (Dual) bm_row[nblk + blk] = bw;
         }
-        bm = bw = 0;
+        bm = in ? 0 : bm;
+        if constexpr (Dual) bw = in ? 0 : bw;
       }
     }
   }
-  // the last, partial block; blocks past valid_len get no column
+  // the last warp: the last, partial block; blocks past valid_len get no
+  // column
   const int vblk = (vl + wave::kBlockCols - 1) / wave::kBlockCols;
-  if ((vl & (wave::kBlockCols - 1)) && t == 31) {
+  if (last && (vl & (wave::kBlockCols - 1)) && t == 31) {
     bm_row[vblk - 1] = bm;
     if constexpr (Dual) bm_row[nblk + vblk - 1] = bw;
   }
-  for (int blk = vblk + t; blk < nblk; blk += 32) {
+  for (int blk = vblk + t; last && blk < nblk; blk += 32) {
     bm_row[blk] = 0;
     if constexpr (Dual) bm_row[nblk + blk] = 0;
   }
   const wave::Best best = wave::merge_best(v, vc, jr, Lw, rl);
   if (t == 0) {
-    a.score[b] = best.score;
-    a.end_ref[b] = best.col;
-    a.end_read[b] = best.row;
+    if (sp.P == 1) {
+      a.score[b] = best.score;
+      a.end_ref[b] = best.col;
+      a.end_read[b] = best.row;
+    } else {
+      const size_t n = size_t(a.B) * sp.P;
+      sp.part[g] = best.score;
+      sp.part[n + g] = best.col;
+      sp.part[2 * n + g] = best.row;
+    }
   }
 }
 
+// A read's P stretch hits, in stretch order: the first of the highest
+// score (columns rise with p, and each stretch's hit is its first column's
+// lowest row), so the outputs are the whole scan's.
+__global__ void sw_wave_packed_merge_kernel(const PackArgs a,
+                                            const SplitArgs sp) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= a.B) return;
+  const size_t n = size_t(a.B) * sp.P, g0 = size_t(b) * sp.P;
+  size_t best = g0;
+  for (int p = 1; p < sp.P; ++p)
+    if (sp.part[g0 + p] > sp.part[best]) best = g0 + p;
+  a.score[b] = sp.part[best];
+  a.end_ref[b] = sp.part[n + best];
+  a.end_read[b] = sp.part[2 * n + best];
+}
+
 template <int KT, bool Quirk, bool Dual>
-int launch_mode(const PackArgs& a, cudaStream_t stream) {
+int launch_mode(const PackArgs& a, const SplitArgs& sp, cudaStream_t stream,
+                int* shape) {
   int wpb;
   size_t smem;
   wave::launch_shape(wave::warp_bytes(a.n1, a.Lw, KT > 0), &wpb, &smem);
+  auto kernel = sw_wave_packed_kernel<KT, Quirk, Dual>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        sw_wave_packed_kernel<KT, Quirk, Dual>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
     if (e != cudaSuccess) return int(e);
   }
-  const int grid = (a.B + wpb - 1) / wpb;
-  sw_wave_packed_kernel<KT, Quirk, Dual>
-      <<<grid, wpb * 32, smem, stream>>>(a);
+  if (shape) {  // no launch: warps per block, resident warps per SM
+    int blocks = 0;
+    cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, kernel, wpb * 32, smem);
+    shape[0] = wpb;
+    shape[1] = blocks * wpb;
+    return int(e);
+  }
+  const long warps = long(a.B) * sp.P;
+  const int grid = int((warps + wpb - 1) / wpb);
+  kernel<<<grid, wpb * 32, smem, stream>>>(a, sp);
+  if (sp.P > 1)
+    sw_wave_packed_merge_kernel<<<(a.B + 127) / 128, 128, 0, stream>>>(a,
+                                                                       sp);
   return int(cudaGetLastError());
 }
 
 template <int KT>
-int launch(const PackArgs& a, bool quirk, bool dual, cudaStream_t stream) {
-  if (dual) return launch_mode<KT, false, true>(a, stream);
-  return quirk ? launch_mode<KT, true, false>(a, stream)
-               : launch_mode<KT, false, false>(a, stream);
+int launch(const PackArgs& a, const SplitArgs& sp, bool quirk, bool dual,
+           cudaStream_t stream, int* shape) {
+  if (dual) return launch_mode<KT, false, true>(a, sp, stream, shape);
+  return quirk ? launch_mode<KT, true, false>(a, sp, stream, shape)
+               : launch_mode<KT, false, false>(a, sp, stream, shape);
 }
 
 }  // namespace
 
 extern "C" {
 
-// int32 scratch elements per read the launch needs (0: register variant).
+// int32 scratch elements per warp the launch needs (0: register variant).
 int sw_wave_packed_scratch_per_read(int Lw, int n1) {
   return sw::reg_k(Lw / 32) ? 0 : kPlanes * Lw + ((n1 + 1) * Lw + 3) / 4;
+}
+
+// The launch shape of a mode: shape[0] warps per block, shape[1] warps of
+// the kernel resident per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor
+// times shape[0]).  Returns the cudaError_t.
+int sw_wave_packed_shape(int Lw, int n1, int quirk, int dual, void* shape) {
+  PackArgs a = {};
+  a.Lw = Lw;
+  a.n1 = n1;
+  SplitArgs sp = {};
+  int* out = static_cast<int*>(shape);
+  SW_DISPATCH_K(Lw / 32, launch, a, sp, quirk != 0, dual != 0, nullptr, out)
 }
 
 // Returns the cudaError_t of the launch (0 on success).
 // sw_forward_packed's arguments without the gate: Lw lanes per warp (a
 // multiple of 32 >= every slot length); nb quirk lane blocks per slot (16
-// byte tier, 8 word); dual needs quirk 0.
+// byte tier, 8 word); dual needs quirk 0.  Then the stretches: P per read,
+// C columns each (a multiple of 256, (P-1)*C < valid_len <= P*C), halo
+// warm-up columns (a multiple of 256), part (3, B*P) int32 scratch when
+// P > 1; scratch holds B*P rows.
 int sw_wave_packed(const void* prof, const void* ref, const void* so,
                    const void* sl, const void* rl_s, const void* flat_idx,
                    int B, int n1, int W, int S, int Lw, int R, int valid_len,
                    int gapO, int gapE, int quirk, int nb, int dual,
                    void* score, void* end_ref, void* end_read,
-                   void* blockmax, void* scratch, void* stream) {
+                   void* blockmax, void* scratch, int P, int C, int halo,
+                   void* part, void* stream) {
   if (B <= 0) return 0;
   if (dual && quirk) return int(cudaErrorInvalidValue);
   if (n1 + 1 > 0xffff) return int(cudaErrorInvalidValue);
+  // the stretches cover the columns, none of them empty
+  const long vcols = max(min(valid_len, R), 1);
+  if (P < 1 || C % wave::kBlockCols || halo % wave::kBlockCols ||
+      (P > 1 && !part) || long(P - 1) * C >= vcols || long(P) * C < vcols)
+    return int(cudaErrorInvalidValue);
   PackArgs a;
   a.prof = static_cast<const int8_t*>(prof);
   a.ref = static_cast<const int32_t*>(ref);
@@ -346,8 +441,13 @@ int sw_wave_packed(const void* prof, const void* ref, const void* so,
   a.end_read = static_cast<int32_t*>(end_read);
   a.blockmax = static_cast<int32_t*>(blockmax);
   a.scratch = static_cast<int32_t*>(scratch);
+  SplitArgs sp;
+  sp.P = P;
+  sp.C = C;
+  sp.halo = halo;
+  sp.part = static_cast<int32_t*>(part);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  SW_DISPATCH_K(Lw / 32, launch, a, quirk != 0, dual != 0, s)
+  SW_DISPATCH_K(Lw / 32, launch, a, sp, quirk != 0, dual != 0, s, nullptr)
 }
 
 const char* sw_error_string(int code) {

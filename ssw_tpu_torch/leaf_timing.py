@@ -19,10 +19,20 @@ the wavefront (scan_body=), those too, keyed `*_scan_body_ms`, and where
 it has the int32 wavefront an int32 leaf like the Ion Torrent x20 one
 (`ion_x20_int32_*`, blockmax and dual).  Trees without a mode time what
 they have.  Needs a CUDA card.
+
+    python3 -m ssw_tpu_torch.leaf_timing --ion [P ...]
+
+times, in this tree alone, the packed forward launch of each leaf of the
+reference README's Ion Torrent headline (1,000 reads of 25-540 bp against
+4,938,920 bases, the default penalties) as the pipeline plans it, with the
+target split into each P of stretches given (default 1 2 4 8 16 32) and at
+the rule's P: one JSON line per leaf with its reads, lanes, the rule's P,
+the integer-op bound (cuda_sw.packed_ops at 1.673e13 op/s) and ms per P.
 """
 
 from __future__ import annotations
 
+import contextlib
 import inspect
 import json
 import os
@@ -215,7 +225,107 @@ def _packed_leaves(torch, common, cuda_sw, codes, ref, reads, mat, scan):
     return out
 
 
+ION_GENOME = 4_938_920
+PEAK_OPS = 1.673e13  # INT32 op/s of one H100 (PERF.md's kernel table)
+
+
+def ion_leaves(device):
+    """The Ion Torrent headline's leaves as pipeline.align_batch_launch
+    plans them (reads drawn as tools/make_data.py draws them, seed
+    4,938,920): [(leaf state, forward_shared_packed's positional
+    arguments, its keywords)] with the inputs on `device`."""
+    import torch
+    from ssw_tpu_torch import pipeline
+    from ssw_tpu_torch.core.encoding import dna_matrix
+    from ssw_tpu_torch.ops import common
+
+    rng = np.random.default_rng(ION_GENOME)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    code = np.zeros(256, np.int8)
+    code[bases] = np.arange(4)
+    genome = rng.choice(bases, ION_GENOME).astype(np.uint8)
+    reads = []
+    for _ in range(1000):
+        ln = int(np.clip(rng.normal(200, 80), 25, 540))
+        pos = int(rng.integers(0, len(genome) - ln))
+        rd = genome[pos:pos + ln].copy()
+        m = rng.random(ln) < 0.01
+        if m.any():
+            rd[m] = rng.choice(bases, int(m.sum()))
+        reads.append(code[rd])
+    req = pipeline.BatchRequest(reads=reads, ref=code[genome],
+                                mat=dna_matrix(2, 2), gapO=3, gapE=1)
+    dev = torch.device(device)
+    out = []
+    for _, leaf_req, streaming in pipeline._plan_async(req):
+        st = pipeline._leaf_prepare(leaf_req, dev, streaming)
+        rp = common.pad_reads(leaf_req.reads, st.L, st.n)
+        mat_ext = pipeline._to(dev, common.extend_matrix(st.req.mat),
+                               torch.int8)
+        pprof, tables = pipeline._packed_inputs(
+            st.plan, rp[st.keep], st.read_len[st.keep], st.B, st.n, mat_ext)
+        kw = dict(max_sub=st.max_sub, valid_len=st.ref_len, quirk=st.quirk,
+                  word=bool(st.word_tier), dual=st.dual,
+                  slot_max=int(st.plan.slot_len.max()))
+        out.append((st, (pprof, st.ref_codes, *tables, 3, 1), kw))
+    return out
+
+
+@contextlib.contextmanager
+def pinned_stretches(P):
+    """The packed wavefront's launches split into P stretches per read
+    (pack.stretch_rule answers P; cuda_sw.packed_launch still lowers it so
+    that no stretch is empty); P None: the rule's."""
+    from ssw_tpu_torch.ops import pack
+
+    rule = pack.stretch_rule
+    if P is not None:
+        pack.stretch_rule = lambda *a: P
+    try:
+        yield
+    finally:
+        pack.stretch_rule = rule
+
+
+def ion_sweep(Ps, reps: int = 2) -> list:
+    """ms of each Ion leaf's packed forward at each P of Ps and at the
+    rule's P (ion_leaves on the card)."""
+    import torch
+    from ssw_tpu_torch.ops import _kernels, cuda_sw, pack
+
+    _kernels.build()
+    rows = []
+    for i, (st, args, kw) in enumerate(ion_leaves("cuda")):
+        B = st.B
+        slot = st.plan.slot_len[:B]
+        rule = cuda_sw.packed_launch(
+            B, kw["slot_max"], int(args[0].shape[1]), st.ref_len,
+            st.max_sub, 3, 1, st.quirk, st.dual, st.dev)[0]
+        lanes = pack.packed_lanes(kw["slot_max"])
+        wpb, resident = cuda_sw.packed_shape(lanes, int(args[0].shape[1]),
+                                             st.quirk, st.dual, st.dev)
+        row = {"leaf": i, "reads": B, "lanes": lanes, "K": lanes // 32,
+               "rule_P": rule, "warps_per_block": wpb,
+               "resident_warps_per_sm": resident,
+               "bound_ms": cuda_sw.packed_ops(
+                   slot, st.read_len, st.ref_len, st.quirk, st.dual)
+               / PEAK_OPS * 1e3,
+               "card": torch.cuda.get_device_name(0)}
+        for P in list(Ps) + [None]:
+            with pinned_stretches(P):
+                row[f"P{P or 'rule'}_ms"] = _event_ms(
+                    torch, lambda: cuda_sw.forward_shared_packed(*args, **kw),
+                    reps=reps)
+        rows.append(row)
+    return rows
+
+
 def main(argv: list[str]) -> int:
+    if argv[:1] == ["--ion"]:
+        for row in ion_sweep([int(p) for p in argv[1:]]
+                             or [1, 2, 4, 8, 16, 32]):
+            print(json.dumps(row), flush=True)
+        return 0
     if argv[:1] == ["--one"]:
         print(json.dumps(_time_tree(argv[1])), flush=True)
         return 0

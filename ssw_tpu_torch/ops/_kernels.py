@@ -59,8 +59,10 @@ _SIGNATURES = {
         "sw_wave_i16_scratch_per_pair": [_I],
     },
     "sw_wave_packed": {
-        "sw_wave_packed": [_P] * 6 + [_I] * 12 + [_P] * 6,
+        "sw_wave_packed": [_P] * 6 + [_I] * 12 + [_P] * 5 + [_I] * 3
+                          + [_P] * 2,
         "sw_wave_packed_scratch_per_read": [_I] * 2,
+        "sw_wave_packed_shape": [_I] * 4 + [_P],
     },
     "sw_wave_i32": {
         "sw_wave_shared_i32": [_P] * 6 + [_I] * 7 + [_P] * 5 + [_I]

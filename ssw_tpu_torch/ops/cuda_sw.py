@@ -42,6 +42,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ssw_tpu_torch import profiling
 from ssw_tpu_torch.ops import _kernels, common, gate as gate_mod, pack, \
     scan_sw
 
@@ -103,6 +104,9 @@ GATED = {name: 0 for name in LAUNCHES if name != "forward_perread"}
 # the same launches by the library that ran them (which design, for the
 # int16 tier and the packed kernel)
 LIBRARY = {name: 0 for name in _kernels.KERNELS}
+# of the packed launches, those split into stretches (each also launches
+# sw_wave_packed_merge_kernel)
+SPLIT = {"forward_shared_packed": 0, "forward_shared_packed_dual": 0}
 # per device: warp-column steps by scan depth 0..5 of the gated launches
 _STEPS: dict = {}
 
@@ -423,6 +427,54 @@ def _count_plain_steps(res, gate):
     return out
 
 
+_SHAPES: dict = {}  # (lanes, n1, quirk, dual, card) -> (wpb, resident)
+
+
+def packed_shape(lanes: int, n1: int, quirk: bool, dual: bool, dev):
+    """(warps per block, resident warps per SM) of the packed wavefront's
+    variant for `lanes` lanes per warp and this mode on card `dev` (the
+    library's sw_wave_packed_shape)."""
+    key = (lanes, n1, bool(quirk), bool(dual), str(dev))
+    if key not in _SHAPES:
+        lib = _kernels.load("sw_wave_packed")
+        shape = (ctypes.c_int * 2)()
+        with torch.cuda.device(dev):
+            rc = lib.sw_wave_packed_shape(lanes, n1, int(bool(quirk)),
+                                          int(bool(dual)), shape)
+        _raise_on(lib, rc, "sw_wave_packed_shape")
+        _SHAPES[key] = (shape[0], shape[1])
+    return _SHAPES[key]
+
+
+def _sm_count(dev) -> int:
+    """Streaming multiprocessors of `dev` (0 on the CPU)."""
+    if dev.type != "cuda":
+        return 0
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def packed_launch(B: int, slot_max: int, n1: int, valid_len: int,
+                  max_sub, gapO: int, gapE: int, quirk: bool, dual: bool,
+                  dev, gate=None, scan_body: bool = False):
+    """(P, C, halo, blocks) of the forward_shared_packed launch these
+    arguments make: P stretches per read of C columns, each after halo
+    warm-up columns, in `blocks` blocks.  The wavefront's P follows
+    pack.stretch_rule from the reads, packed_shape's warps per block, the
+    card's SMs, the columns and the halo; a gated or scan_body launch, and
+    any launch off a card, runs P = 1 (blocks: the column-scan body's four
+    warps a block).  The wrapper launches exactly this, and
+    pipeline._forward_waves counts these blocks."""
+    vl = max(int(valid_len), 0)
+    lanes = pack.packed_lanes(slot_max)
+    if gate is not None or scan_body or dev.type != "cuda":
+        return 1, pack.stretch_bounds(vl, 1)[1], 0, -(-B // 4)
+    wpb = packed_shape(lanes, n1, quirk, dual, dev)[0]
+    halo = pack.stretch_halo(lanes, max_sub, gapO, gapE)
+    P, C = pack.stretch_bounds(vl, pack.stretch_rule(
+        B, wpb, _sm_count(dev), vl, halo))
+    return P, C, halo if P > 1 else 0, -(-B * P // wpb)
+
+
 def forward_shared_packed(profile, ref, so, sl, rl_s, flat_idx, gapO: int,
                           gapE: int, max_sub: int | None = None,
                           valid_len: int | None = None, quirk: bool = False,
@@ -442,8 +494,11 @@ def forward_shared_packed(profile, ref, so, sl, rl_s, flat_idx, gapO: int,
     a device sync).  gate: per-depth thresholds for K =
     pack.packed_lanes(slot_max)/32 (ops/gate.py).  Without the gate the
     wavefront runs (sw_wave_packed) unless scan_body, else the column-scan
-    body (sw_forward_packed).  Counted as forward_shared_packed[_dual] (and
-    in GATED with gate=, in LIBRARY by library)."""
+    body (sw_forward_packed).  The wavefront splits the target into
+    stretches, one warp each, as packed_launch says; the outputs are the
+    same.  Counted as forward_shared_packed[_dual] (and in GATED with gate=,
+    in LIBRARY by library, in SPLIT with P > 1), and on a card its warps,
+    B * P, in the profiling counter `forward_stretches`."""
     if profile.device.type == "cpu":
         res = scan_sw.forward_shared_ref_packed(
             profile, ref, so, sl, rl_s, flat_idx, gapO, gapE,
@@ -479,9 +534,13 @@ def forward_shared_packed(profile, ref, so, sl, rl_s, flat_idx, gapO: int,
     libname = ("sw_wave_packed" if gate is None and not scan_body
                else "sw_forward_packed")
     lib = _kernels.load(libname)
+    P, C, halo, _ = packed_launch(B, slot_max, n1, vl, max_sub, gapO, gapE,
+                                  quirk, dual, dev, gate, scan_body)
     n = getattr(lib, libname + "_scratch_per_read")(Lw, n1)
-    scratch = (torch.empty((B, n), dtype=torch.int32, device=dev)
+    scratch = (torch.empty((B * P, n), dtype=torch.int32, device=dev)
                if n else None)
+    part = (torch.empty((3, B * P), dtype=torch.int32, device=dev)
+            if P > 1 else None)
     head = (profile.data_ptr(), ref.data_ptr(), so.data_ptr(), sl.data_ptr(),
             rl_s.data_ptr(), flat_idx.data_ptr(), B, n1, W, S, Lw, R, vl,
             int(gapO), int(gapE), int(bool(quirk)), 8 if word else 16,
@@ -491,12 +550,15 @@ def forward_shared_packed(profile, ref, so, sl, rl_s, flat_idx, gapO: int,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if libname == "sw_wave_packed":
-            rc = lib.sw_wave_packed(*head, stream)
+            rc = lib.sw_wave_packed(*head, P, C, halo, _ptr(part), stream)
         else:
             rc = lib.sw_forward_packed(*head, thr, hist, stream)
     name = "forward_shared_packed" + ("_dual" if dual else "")
     _raise_on(lib, rc, name)
     _count(name, libname, gate)
+    if P > 1:
+        SPLIT[name] += 1
+    profiling.count("forward_stretches", B * P)
     return score, end_ref, end_read, maxcol
 
 
@@ -546,8 +608,8 @@ def forward_perread(profile, refw, read_len, col_mask, seg_id, seg_start,
 
 
 def reset_launches():
-    """Set LAUNCHES, GATED, LIBRARY and PARITY_LAUNCHES to 0."""
-    for counts in (LAUNCHES, GATED, LIBRARY, PARITY_LAUNCHES):
+    """Set LAUNCHES, GATED, LIBRARY, SPLIT and PARITY_LAUNCHES to 0."""
+    for counts in (LAUNCHES, GATED, LIBRARY, SPLIT, PARITY_LAUNCHES):
         for name in counts:
             counts[name] = 0
 
@@ -562,6 +624,10 @@ def gated_counts() -> dict:
 
 def library_counts() -> dict:
     return dict(LIBRARY)
+
+
+def split_counts() -> dict:
+    return dict(SPLIT)
 
 
 def parity_counts() -> dict:

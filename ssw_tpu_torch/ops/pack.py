@@ -25,6 +25,8 @@ from __future__ import annotations
 
 import torch
 
+from ssw_tpu_torch.ops import common
+
 PACK_BUMP = 2 ** 17  # slot separation for packed rows: DP intermediates
                      # span < 2**16, so 2**17 keeps up to 2**14 slots
                      # strictly ordered inside int32
@@ -72,6 +74,83 @@ def check_quirk_span(longest: int, max_sub, gapO: int, gapE: int):
     if not quirk_span_ok(longest, max_sub, gapO, gapE):
         raise ValueError("slot-local value span exceeds the quirk block bias "
                          "separation QBUMP")
+
+
+# Stretches: the packed wavefront may run a read as P warps, warp p owning
+# the target columns [p*C, min((p+1)*C, valid_len)) and starting its DP from
+# zero state `halo` columns before them (warp 0 at column 0).  The halo
+# columns never take a best hit nor feed a block maximum; the per-stretch
+# best hits merge as the whole scan's tracker would (highest score, then
+# lowest column, then lowest row).  This is the sharded path's owned-column
+# rule (parallel/dist.py) inside one launch.
+STRETCH_ALIGN = 256  # C and halo: whole blocks of the block maxima (BM)
+# C >= STRETCH_HALOS * halo: the halo stays under 1/64 of a stretch's work
+STRETCH_HALOS = 64
+# Warps per SM a split launch aims for.  The Ion Torrent headline's five
+# packed dual leaves alone, P swept (leaf_timing.py --ion; NVIDIA H100 80GB
+# HBM3, 700.00 W; PERF.md §6): every leaf kept gaining past what its
+# variant holds resident (16-36 warps per SM), since later blocks even out
+# the SMs' tails: K = 4 (187 reads) 94.2 ms at 11 warps per SM, 85.6 at
+# 45, 81.2 at 91; K = 6 (293) 196.4 at 18, 168.6 at 71; K = 14 (62) 89.0
+# at 4, 71.1 at 15 (P = 33, the halo cap).  In the Ion cell, in turns: 969
+# and 950 reads/s at 32, 1,014 and 1,004 at 64, 955 and 1,025 at the cap.
+STRETCH_FILL = 64
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-int(x) // m) * m
+
+
+def stretch_halo(lanes: int, max_sub, gapO: int, gapE: int) -> int:
+    """Warm-up columns after which a zero-state restart of the DP is exact
+    for slots of up to `lanes` rows: pipeline._restart_margin's bound with
+    max(mat) <= max_sub (None: the int8 bound 127), a chain moving down at
+    most `lanes` rows and paying min(gapO, gapE) for every other column.
+    Rounded up to whole blocks."""
+    ms = max(127 if max_sub is None else int(max_sub), 1)
+    g = max(min(int(gapO), int(gapE)), 1)
+    w = int(lanes) * (1 + (ms + g - 1) // g) + 1
+    return _round_up(common.bucket_size(w, 64) + int(lanes) + 256,
+                     STRETCH_ALIGN)
+
+
+def stretch_bounds(valid_len: int, P: int) -> tuple[int, int]:
+    """(P, C) for at most P stretches over valid_len columns: C the columns
+    per stretch in whole blocks, P lowered so that no stretch is empty."""
+    vl = max(int(valid_len), 1)
+    C = _round_up(-(-vl // max(int(P), 1)), STRETCH_ALIGN)
+    return -(-vl // C), C
+
+
+def stretch_rule(B: int, wpb: int, sms: int, valid_len: int,
+                 halo: int) -> int:
+    """Stretches per read of a packed wavefront launch of B reads in
+    blocks of wpb warps: 1 without SMs (the CPU) or where the whole-target
+    launch already has a block on each of the `sms` SMs; else the least P
+    that brings B*P warps to STRETCH_FILL warps per SM, at most as many as
+    keep C >= STRETCH_HALOS * halo.
+
+    Why a launch with a block on every SM stays whole: such launches are
+    the 1,024-read leaves of the cells with many leaves in flight, whose
+    forwards overlap on other streams; split, a leaf's blocks take every
+    SM and the other leaves' short kernels queue behind them (PERF.md
+    §6)."""
+    target = STRETCH_FILL * int(sms)
+    if B <= 0 or -(-B // max(int(wpb), 1)) >= int(sms):
+        return 1
+    P = -(-target // B)
+    P_max = max(1, int(valid_len) // (STRETCH_HALOS * int(halo)))
+    return stretch_bounds(valid_len, min(P, P_max))[0]
+
+
+def stretch_spans(valid_len: int, P: int, C: int, halo: int) -> list:
+    """(first scanned column, first owned column, end) of each stretch."""
+    out = []
+    for p in range(P):
+        own = p * C
+        end = int(valid_len) if p == P - 1 else own + C
+        out.append((max(own - halo, 0), own, end))
+    return out
 
 
 def pack_geometry(so, sl, rl, L: int, nb: int = 16):

@@ -275,7 +275,7 @@ def forward_shared_ref_packed(profile, ref, so, sl, rl_s, flat_idx,
                               valid_len: int | None = None,
                               quirk: bool = False, word: bool = False,
                               dual: bool = False, gate=None,
-                              steps: bool = False):
+                              steps: bool = False, stretches: int = 1):
     """Forward pass of LANE-PACKED rows (ops/pack.py): the plain version of
     the JAX kernel's packed mode, run on the packed layout itself (with
     gate=, as the kernel runs it: _packed_slots_ref).
@@ -296,7 +296,13 @@ def forward_shared_ref_packed(profile, ref, so, sl, rl_s, flat_idx,
     h_diag is cut and F poisoned (gmd = NEG) at slot starts; the decay
     restarts at lane_off.  The quirk's lane-block scan adds qseg * QBUMP
     under the slot bias (word: the 8-block geometry), exact while
-    check_quirk_span holds."""
+    check_quirk_span holds.
+
+    stretches: run the columns as the kernel's split launch does (at most
+    that many stretches, pack.stretch_bounds; ungated only): each stretch
+    from zero state pack.stretch_halo columns before the columns it owns,
+    taking best hits and block maxima in those alone, the lanes' trackers
+    merged in column order.  The outputs are the same."""
     Br, n1, W = profile.shape
     S = int(so.shape[1])
     dev = profile.device
@@ -305,6 +311,8 @@ def forward_shared_ref_packed(profile, ref, so, sl, rl_s, flat_idx,
     if quirk:
         pack.check_quirk_span(pack.slot_max(sl), max_sub, gapO, gapE)
     if gate is not None:
+        if stretches != 1:
+            raise ValueError("a gated launch runs the whole target")
         return _packed_slots_ref(profile, ref, so, sl, rl_s, flat_idx, gapO,
                                  gapE, valid_len, quirk, word, dual, gate,
                                  steps)
@@ -326,11 +334,9 @@ def forward_shared_ref_packed(profile, ref, so, sl, rl_s, flat_idx,
     S2 = 2 * S if dual else S
     prof_t = profile.to(_I32).permute(1, 0, 2).contiguous()  # (n+1, Br, W)
     codes = ref.tolist()
-    H = torch.zeros((Br, W), dtype=_I32, device=dev)
-    E = torch.zeros_like(H)
-    bv = torch.zeros_like(H)
-    bc = torch.full_like(H, -1)
-    run = torch.full_like(H, NEG)  # per-lane max of the current block
+    bv = torch.zeros((Br, W), dtype=_I32, device=dev)
+    bc = torch.full_like(bv, -1)
+    run = torch.full_like(bv, NEG)  # per-lane max of the current block
     maxcol = torch.zeros((Br, nblk, S2), dtype=_I32, device=dev)
     ids = slot_id.long()
 
@@ -338,31 +344,45 @@ def forward_shared_ref_packed(profile, ref, so, sl, rl_s, flat_idx,
         out = torch.full((Br, S), NEG, dtype=_I32, device=dev)
         return out.scatter_reduce(1, ids, x, "amax").clamp_min(0)
 
-    for j in range(vl):
-        h_tilde = torch.maximum(
-            torch.where(slot_reset, 0, _shift_right(H, 0)) + prof_t[codes[j]],
-            E)
-        c = h_tilde + dmg
-        F = _shift_right(torch.cummax(c, dim=1).values, NEG) + gmd
-        H = torch.maximum(h_tilde, F)
-        if quirk:
-            cs = torch.cummax(c + qb, dim=1).values - qb
-            F_loc = _shift_right(cs, NEG) - decay_q + gapE
-            F_loc = torch.where(rst, 0, F_loc.clamp_min(0))
-            h_fp = torch.maximum(h_tilde, F_loc)
-        else:
-            h_fp = H
-        E = torch.maximum(E - gapE, h_fp - gapO).clamp_min(0)
-        Hv = torch.where(col_mask, H, NEG)
-        imp = Hv > bv
-        bv = torch.where(imp, Hv, bv)
-        bc = torch.where(imp, j, bc)
-        run = torch.maximum(run, Hv)
-        if j % BM == BM - 1 or j == vl - 1:
-            maxcol[:, j // BM, :S] = per_slot(run)
-            if dual:
-                maxcol[:, j // BM, S:] = per_slot(torch.where(wcol, run, NEG))
-            run.fill_(NEG)
+    P, C = pack.stretch_bounds(vl, stretches)
+    halo = pack.stretch_halo(pack.packed_lanes(pack.slot_max(sl)), max_sub,
+                             gapO, gapE) if P > 1 else 0
+    for first, own, end in pack.stretch_spans(vl, P, C, halo):
+        H = torch.zeros_like(bv)
+        E = torch.zeros_like(bv)
+        sv = torch.zeros_like(bv)  # this stretch's trackers
+        sc = torch.full_like(bv, -1)
+        for j in range(first, end):
+            h_tilde = torch.maximum(
+                torch.where(slot_reset, 0, _shift_right(H, 0))
+                + prof_t[codes[j]], E)
+            c = h_tilde + dmg
+            F = _shift_right(torch.cummax(c, dim=1).values, NEG) + gmd
+            H = torch.maximum(h_tilde, F)
+            if quirk:
+                cs = torch.cummax(c + qb, dim=1).values - qb
+                F_loc = _shift_right(cs, NEG) - decay_q + gapE
+                F_loc = torch.where(rst, 0, F_loc.clamp_min(0))
+                h_fp = torch.maximum(h_tilde, F_loc)
+            else:
+                h_fp = H
+            E = torch.maximum(E - gapE, h_fp - gapO).clamp_min(0)
+            if j < own:  # the halo: warm-up only
+                continue
+            Hv = torch.where(col_mask, H, NEG)
+            imp = Hv > sv
+            sv = torch.where(imp, Hv, sv)
+            sc = torch.where(imp, j, sc)
+            run = torch.maximum(run, Hv)
+            if j % BM == BM - 1 or j == vl - 1:
+                maxcol[:, j // BM, :S] = per_slot(run)
+                if dual:
+                    maxcol[:, j // BM, S:] = per_slot(
+                        torch.where(wcol, run, NEG))
+                run.fill_(NEG)
+        imp = sv > bv  # a later stretch wins only with a higher value
+        bv = torch.where(imp, sv, bv)
+        bc = torch.where(imp, sc, bc)
     tables = pack.pack_reconstruct(bv, bc, maxcol.reshape(Br, nblk * S2),
                                    slot_id, lane_off, rl_s.to(dev), S, dual)
     return pack.gather_reads(*tables, flat_idx.to(dev), S, dual)

@@ -585,32 +585,45 @@ def _align_batch(req: BatchRequest, device) -> list:
 
 def _sm_count(dev) -> int:
     """Streaming multiprocessors of `dev` (0 on the CPU: no schedule)."""
-    if dev.type != "cuda":
-        return 0
-    return torch.cuda.get_device_properties(dev).multi_processor_count
+    return cuda_sw._sm_count(dev)
+
+
+def _forward_blocks(st) -> int:
+    """Blocks of the leaf's forward launch, as the launch will have them:
+    the packed launch's from cuda_sw.packed_launch on the arguments
+    _packed_forward gives it (its stretches fill the card), else a block of
+    four warps per four reads."""
+    if st.plan is None:
+        return -(-st.B // 4)
+    slot_max = int(st.plan.slot_len.max())
+    return cuda_sw.packed_launch(
+        st.B, slot_max, st.n + 1, st.ref_len, st.max_sub, st.req.gapO,
+        st.req.gapE, st.quirk, st.dual, st.dev,
+        gate=_gate(st.plan.L, st.req.gapO, st.req.gapE, st.max_sub,
+                   slot_max))[3]
 
 
 def _forward_waves(leaves, sms: int) -> list:
     """The waves in which a call launches its leaves' forward passes: each
     wave starts on the device when the previous one's forwards have ended.
 
-    leaves: (rows, L) per leaf, in the plan's order.  The forward kernels
-    give each read (row) a warp and each block four warps, and each block
-    scans the whole target, so a leaf keeps about rows / 4 SMs busy for a
-    time that grows with its lane bucket L.  Blocks of two launches that
-    share an SM each run slower, and a block never moves to an SM that
-    frees: on the H100 the Ion Torrent headline's five leaves, started at
-    once in the plan's order (shortest first), crowded the longest ones'
-    blocks on a few SMs and took as long as one after another (PERF.md
-    §6).  So the leaves are packed into waves of at most `sms` blocks,
-    first fit in descending L (longest first); a leaf of more blocks than
-    SMs is a wave of its own.  sms 0 (the CPU): one wave, in the plan's
-    order.  Returns lists of leaf indices."""
+    leaves: (blocks, L) per leaf, in the plan's order (_forward_blocks).
+    Unsplit, a forward block scans the whole target, so a leaf keeps about
+    `blocks` SMs busy for a time that grows with its lane bucket L.  Blocks
+    of two launches that share an SM each run slower, and a block never
+    moves to an SM that frees: on the H100 the Ion Torrent headline's five
+    leaves, started at once in the plan's order (shortest first), crowded
+    the longest ones' blocks on a few SMs and took as long as one after
+    another (PERF.md §6).  So the leaves are packed into waves of at most
+    `sms` blocks, first fit in descending L (longest first); a leaf of more
+    blocks than SMs, as every packed leaf whose stretches fill the card
+    (cuda_sw.packed_launch), is a wave of its own.  sms 0 (the CPU): one
+    wave, in the plan's order.  Returns lists of leaf indices."""
     if not sms:
         return [list(range(len(leaves)))]
     waves = []  # [blocks, leaf indices]
     for i in sorted(range(len(leaves)), key=lambda i: -leaves[i][1]):
-        need = (leaves[i][0] + 3) // 4
+        need = leaves[i][0]
         for w in waves:
             if w[0] + need <= sms:
                 w[0] += need
@@ -636,17 +649,16 @@ def align_batch_launch(req: BatchRequest, device=None) -> _Pending:
         if plan is not None:
             pend = _Pending()
             pend.B = len(req.reads)
-            states: list = [None] * len(plan)
+            states = [_leaf_prepare(leaf_req, dev, streaming)
+                      for _, leaf_req, streaming in plan]
+            assert not any(isinstance(st, list) for st in states)  # guards
             prev: list = []
             for wave in _forward_waves(
-                    [(len(r.reads), _leaf_plan(r.reads)[1])
-                     for _, r, _ in plan], _sm_count(dev)):
+                    [(_forward_blocks(st), st.L) for st in states],
+                    _sm_count(dev)):
                 for i in wave:
-                    _, leaf_req, streaming = plan[i]
-                    st = _leaf_start(leaf_req, dev, streaming, pooled=True,
-                                     after=[states[j].fwd_done for j in prev])
-                    assert not isinstance(st, list)  # planner's guards
-                    states[i] = st
+                    _leaf_queue(states[i], pooled=True,
+                                after=[states[j].fwd_done for j in prev])
                 prev = wave
             # mid and finish take the leaves in the plan's order
             pend.parts = [(idx, st) for (idx, _, _), st in zip(plan, states)]
@@ -734,7 +746,7 @@ class _LeafState:
         "req", "dev", "streaming", "B", "n", "bias", "ref_len", "mask_len",
         "read_len", "L", "mat_ext_d", "reads_d", "rl_d", "quirk", "max_sub",
         "word_tier", "might", "dual", "gate", "ref_codes", "ref_ext", "D",
-        "Wb", "Wb2",
+        "Wb", "Wb2", "plan", "keep", "col_word",
         "fwd_d", "sub_d", "bm_d",
         "score", "end_ref", "end_read", "score2", "ref_end2", "word",
         "null_mask", "fin", "stream", "fwd_done")
@@ -754,26 +766,18 @@ def _forward(st: _LeafState, reads_d, rl_d, col_word, seg_word: bool):
                                   valid_len=st.ref_len, gate=st.gate)
 
 
-def _leaf_start(req: BatchRequest, dev, streaming: bool,
-                pooled: bool = False, after=()):
-    """Queue the leaf's device work: upload, forward pass, and (when not
-    streaming) the speculative suboptimal scan.  No host<->device syncs.
-    pooled (the asynchronous path, where several leaves are in flight):
-    every device operation of the leaf, from here to its last download in
-    _leaf_finish, runs on a stream of its own (_leaf_stream, st.stream),
-    so that each download waits for its own leaf alone; its forward
-    launch waits on the device for the events `after` (the previous
-    wave's fwd_done, _forward_waves) and records st.fwd_done.
+def _leaf_start(req: BatchRequest, dev, streaming: bool):
+    """_leaf_prepare then _leaf_queue on the caller's stream (the
+    synchronous path)."""
+    st = _leaf_prepare(req, dev, streaming)
+    return st if isinstance(st, list) else _leaf_queue(st)
 
-    The suboptimal scan launches before the byte-overflow tier decision is
-    known by using the speculative col_word tiers for its window-edge
-    asymmetry: every read whose speculative tier differs from its final
-    tier is exactly the set the word re-run re-scans (need_word implies
-    might), so the re-run's own suboptimal results overwrite any
-    speculative mismatch — final outputs are identical to deciding first.
 
-    Returns a results list instead when the quirk value-range guard routes
-    to the oracle fallback."""
+def _leaf_prepare(req: BatchRequest, dev, streaming: bool):
+    """The leaf's host-side plan (read lengths, lane bucket, tiers, the
+    gate, the lane packing) and its target on the device (_device_ref).
+    Returns the _LeafState for _leaf_queue, or a results list when the
+    quirk value-range guard routes to the oracle fallback."""
     st = _LeafState()
     st.req, st.dev, st.streaming = req, dev, streaming
     B = st.B = len(req.reads)
@@ -821,21 +825,49 @@ def _leaf_start(req: BatchRequest, dev, streaming: bool,
                                        max_sub, st.bias)
     dual = st.dual = _dual_tier(might, streaming)
     st.gate = _gate(L, req.gapO, req.gapE, max_sub)
-    col_word = np.zeros(B, bool) if dual else np.full(B, word_tier) | might
-    profiling.add_pairs(read_len, ref_len)
-    reads_padded = common.pad_reads(req.reads, L, pad_code=n)
-    plan = None
+    st.col_word = (np.zeros(B, bool) if dual
+                   else np.full(B, word_tier) | might)
+    st.plan = st.keep = None
     if streaming and PACK is not False:
         # plan as the JAX package's Pallas path does, on the batch padded
         # to a multiple of 64 reads with copies of read 0, so that PACK =
         # True packs what it packs; the copies' slots are never launched
-        keep = np.concatenate([np.arange(B),
-                               np.zeros(common.round_up(B, 64) - B, np.int64)])
+        st.keep = np.concatenate(
+            [np.arange(B), np.zeros(common.round_up(B, 64) - B, np.int64)])
         plan = (_pack_rule if PACK is None else _plan_pack)(
-            read_len[keep], col_word[keep], len(keep), L)
+            read_len[st.keep], st.col_word[st.keep], len(st.keep), L)
         if plan is not None and quirk and not pack.quirk_span_ok(
                 int(plan.slot_len.max()), max_sub, req.gapO, req.gapE):
             plan = None  # the quirk's sub-slot block bias would not be exact
+        st.plan = plan
+    return st
+
+
+def _leaf_queue(st: _LeafState, pooled: bool = False, after=()):
+    """Queue the prepared leaf's device work: upload, forward pass, and
+    (when not streaming) the speculative suboptimal scan.  No host<->device
+    syncs.  pooled (the asynchronous path, where several leaves are in
+    flight): every device operation of the leaf, from here to its last
+    download in _leaf_finish, runs on a stream of its own (_leaf_stream,
+    st.stream), so that each download waits for its own leaf alone; its
+    forward launch waits on the device for the events `after` (the
+    previous wave's fwd_done, _forward_waves) and records st.fwd_done.
+
+    The suboptimal scan launches before the byte-overflow tier decision is
+    known by using the speculative col_word tiers for its window-edge
+    asymmetry: every read whose speculative tier differs from its final
+    tier is exactly the set the word re-run re-scans (need_word implies
+    might), so the re-run's own suboptimal results overwrite any
+    speculative mismatch — final outputs are identical to deciding first.
+
+    Returns st."""
+    req, dev, streaming = st.req, st.dev, st.streaming
+    B, n, L, ref_len = st.B, st.n, st.L, st.ref_len
+    read_len, quirk, max_sub = st.read_len, st.quirk, st.max_sub
+    word_tier, dual, col_word, plan = (st.word_tier, st.dual, st.col_word,
+                                       st.plan)
+    profiling.add_pairs(read_len, ref_len)
+    reads_padded = common.pad_reads(req.reads, L, pad_code=n)
     # the target went up on the caller's stream (_device_ref: shared by
     # leaves and calls); the rest of the leaf's device work goes on the
     # leaf's own stream when pooled
@@ -851,8 +883,9 @@ def _leaf_start(req: BatchRequest, dev, streaming: bool,
         for ev in after:
             st.stream.wait_event(ev)
         if plan is not None:
-            pprof, tables = _packed_inputs(plan, reads_padded[keep],
-                                           read_len[keep], B, n, st.mat_ext_d)
+            pprof, tables = _packed_inputs(plan, reads_padded[st.keep],
+                                           read_len[st.keep], B, n,
+                                           st.mat_ext_d)
             score_d, er_d, ed_d, mc_d = _packed_forward(
                 plan, pprof, st.ref_codes, tables, req.gapO, req.gapE,
                 max_sub, ref_len, quirk, bool(word_tier), dual)

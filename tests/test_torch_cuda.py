@@ -939,3 +939,109 @@ def test_spotcheck_cuda_cut_cases(card):
     from ssw_tpu_torch.tools import spotcheck_cuda
 
     assert spotcheck_cuda.run(card, n_reads=8) == 0
+
+
+# -- the packed wavefront's split target (ops/pack.py stretches) --------------
+
+@pytest.mark.parametrize("lanes,mode", [
+    (lanes, mode) for lanes in (128, 192, 256, 320, 448, 1088)
+    for mode in ("blockmax", "dual", "quirk")
+    # slots past 1024 lanes break the quirk's span guard: never packed
+    if not (lanes > 1024 and mode == "quirk")])
+def test_wave_packed_stretches_equal_plain(card, lanes, mode, monkeypatch):
+    """The packed wavefront split into P = 1, 2, 3, 8 stretches (the rule
+    pinned) and at the rule's P, on inputs built around the boundaries of
+    three stretches (tests/test_torch_stretch.py), against the plain twin
+    and its own P = 1 launch bit for bit: score, end_ref, end_read and both
+    channels of block maxima; K = 4 to 14 and a global-row width (K = 34).
+    Each launch's warps are counted in `forward_stretches`, each split
+    launch in SPLIT."""
+    from test_torch_stretch import stretch_case
+
+    from ssw_tpu_torch import profiling
+    from ssw_tpu_torch.ops import pack
+
+    args, kw, gapO, gapE = stretch_case(3, mode, seed=lanes, dev=card,
+                                        lanes=lanes)
+    B = int(args[5].shape[0])
+    want = scan_sw.forward_shared_ref_packed(
+        *(a.cpu() for a in args), gapO, gapE, **kw)
+    with monkeypatch.context() as m:
+        m.setattr(pack, "stretch_rule", lambda *a: 1)
+        one = cuda_sw.forward_shared_packed(*args, gapO, gapE, **kw)
+    _equal(one, tuple(w.to(card) for w in want))
+    name = "forward_shared_packed" + ("_dual" if mode == "dual" else "")
+    for P in (2, 3, 8, None):
+        before = cuda_sw.library_counts()["sw_wave_packed"]
+        split = cuda_sw.split_counts()[name]
+        with monkeypatch.context() as m, \
+                pipeline.profiled(profiling.GcupsCounter()) as c:
+            if P is not None:
+                m.setattr(pack, "stretch_rule", lambda *a: P)
+            got = cuda_sw.forward_shared_packed(*args, gapO, gapE, **kw)
+        assert cuda_sw.library_counts()["sw_wave_packed"] == before + 1
+        _equal(got, one)
+        P_eff = pack.stretch_bounds(kw["valid_len"], P)[0] if P else 1
+        assert c.counts["forward_stretches"] == B * P_eff
+        assert cuda_sw.split_counts()[name] == split + (P_eff > 1)
+
+
+def test_wave_packed_refuses_uncovered_columns(card, monkeypatch):
+    """The C entry point refuses stretches that leave columns below
+    valid_len to no warp, or leave a stretch empty, and runs a C of its
+    caller's choosing that covers them."""
+    from test_torch_stretch import stretch_case
+
+    from ssw_tpu_torch.ops import pack
+
+    args, kw, gapO, gapE = stretch_case(3, "dual", dev=card)
+    vl = kw["valid_len"]
+    want = scan_sw.forward_shared_ref_packed(
+        *(a.cpu() for a in args), gapO, gapE, **kw)
+    for P, C in ((2, 256), (2, 2304), (3, 2560)):  # short; short; empty
+        assert P * C < vl or (P - 1) * C >= vl
+        monkeypatch.setattr(pack, "stretch_bounds", lambda *a: (P, C))
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            cuda_sw.forward_shared_packed(*args, gapO, gapE, **kw)
+    monkeypatch.setattr(pack, "stretch_bounds", lambda *a: (2, 2560))
+    _equal(cuda_sw.forward_shared_packed(*args, gapO, gapE, **kw),
+           tuple(w.to(card) for w in want))
+
+
+def test_ion_headline_split_sam_equals_unsplit(card, tmp_path,
+                                               monkeypatch):
+    """The reference README's Ion Torrent headline (1,000 reads of 25-540
+    bp against a 4,938,920-base genome, -c -s -h) through cli.main: the
+    rule splits every packed leaf, and the SAM equals the run with every
+    launch whole."""
+    import io
+
+    from ssw_tpu_torch import cli, profiling
+    from ssw_tpu_torch.ops import pack
+
+    rng = np.random.default_rng(4_938_920)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    genome = rng.choice(bases, 4_938_920).astype(np.uint8)
+    fa, fq = tmp_path / "ecoli_synth.fa", tmp_path / "ion.fastq"
+    fa.write_bytes(b">ecoli_synth\n" + genome.tobytes() + b"\n")
+    with open(fq, "wb") as f:
+        for i in range(1000):
+            ln = int(np.clip(rng.normal(200, 80), 25, 540))
+            pos = int(rng.integers(0, len(genome) - ln))
+            rd = genome[pos:pos + ln].copy()
+            m = rng.random(ln) < 0.01
+            rd[m] = rng.choice(bases, int(m.sum()))
+            f.write(b"@ion_%d\n%s\n+\n%s\n" % (i, rd.tobytes(), b"I" * ln))
+
+    def run():
+        out, err = io.StringIO(), io.StringIO()
+        with pipeline.profiled(profiling.GcupsCounter()) as c:
+            assert cli.main(["-c", "-s", "-h", str(fa), str(fq)], out,
+                            err) == 0
+        return out.getvalue(), c.counts["forward_stretches"]
+
+    split, n_split = run()
+    monkeypatch.setattr(pack, "stretch_rule", lambda *a: 1)
+    whole, n_whole = run()
+    assert n_whole == 1000 < n_split
+    assert split.count("\n") > 1000 and split == whole

@@ -161,7 +161,7 @@ def test_live_leaves_hold_their_streams_until_finish(monkeypatch, sms):
             states = [st for _, st in p.parts]
             assert all(st.fwd_done.stream is st.stream for st in states)
             waves = pipeline._forward_waves(
-                [(st.B, st.L) for st in states], sms)
+                [(pipeline._forward_blocks(st), st.L) for st in states], sms)
             assert len(waves) == (1 if sms == 0 else 2)
             for prev, wave in zip([[]] + waves, waves):
                 for i in wave:
@@ -182,16 +182,17 @@ def test_live_leaves_hold_their_streams_until_finish(monkeypatch, sms):
 
 
 @pytest.mark.parametrize("leaves,sms,want", [
-    # the Ion Torrent headline's five leaves (reads, lane bucket)
-    ([(187, 128), (293, 192), (281, 256), (177, 320), (62, 576)], 132,
+    # the Ion Torrent headline's five leaves unsplit (blocks of four
+    # reads, lane bucket)
+    ([(47, 128), (74, 192), (71, 256), (45, 320), (16, 576)], 132,
      [[4, 3, 2], [1, 0]]),
     # Illumina's leaves: each has more blocks than the card has SMs
-    ([(1024, 128), (1024, 128)], 132, [[0], [1]]),
+    ([(256, 128), (256, 128)], 132, [[0], [1]]),
     # exactly full, then one more block
-    ([(256, 64), (272, 128), (4, 192)], 132, [[2, 1], [0]]),
-    ([(132 * 4, 64), (1, 64)], 132, [[0], [1]]),
+    ([(64, 64), (68, 128), (1, 192)], 132, [[2, 1], [0]]),
+    ([(132, 64), (1, 64)], 132, [[0], [1]]),
     # the CPU: one wave in the plan's order
-    ([(187, 128), (293, 192), (62, 576)], 0, [[0, 1, 2]]),
+    ([(47, 128), (74, 192), (16, 576)], 0, [[0, 1, 2]]),
 ])
 def test_forward_waves(leaves, sms, want):
     assert pipeline._forward_waves(leaves, sms) == want
