@@ -353,29 +353,33 @@ def stream_render_batch(entries, target_path, table, mat, opts, sam, filt,
             out.write(b.getvalue())
 
 
+def _strand_requests(batch, enc_t, mat, opts, filt, flag, rc_allowed):
+    """The BatchRequest of a batch of encoded query entries against the
+    encoded target enc_t, and its reverse complement's (None without
+    -r)."""
+    mask_lens = [len(b["num"]) // 2 for b in batch]
+
+    def request(reads):
+        return pipeline.BatchRequest(
+            reads=reads, ref=enc_t, mat=mat, gapO=opts["gap_open"],
+            gapE=opts["gap_extension"], flag=flag, filters=filt,
+            filterd=0, mask_len=mask_lens, score_size=2)
+
+    return (request([b["num"] for b in batch]),
+            request([b["num_rc"] for b in batch]) if rc_allowed else None)
+
+
 def launch_batch(batch, enc_targets, mat, opts, filt, flag, rc_allowed,
                  device):
     """Queue the device work for every (target, strand) request of a batch
     of encoded query entries; no host<->device syncs.  Returns one
     (pend, pend_rc) per target for complete_batch."""
-    reads = [b["num"] for b in batch]
-    mask_lens = [len(r) // 2 for r in reads]
     pends = []
     for enc_t in enc_targets:
-        req = pipeline.BatchRequest(
-            reads=reads, ref=enc_t, mat=mat, gapO=opts["gap_open"],
-            gapE=opts["gap_extension"], flag=flag, filters=filt,
-            filterd=0, mask_len=mask_lens, score_size=2)
-        pend = pipeline.align_batch_launch(req, device)
-        pend_rc = None
-        if rc_allowed:
-            req_rc = pipeline.BatchRequest(
-                reads=[b["num_rc"] for b in batch], ref=enc_t, mat=mat,
-                gapO=opts["gap_open"], gapE=opts["gap_extension"],
-                flag=flag, filters=filt, filterd=0, mask_len=mask_lens,
-                score_size=2)
-            pend_rc = pipeline.align_batch_launch(req_rc, device)
-        pends.append((pend, pend_rc))
+        req, req_rc = _strand_requests(batch, enc_t, mat, opts, filt, flag,
+                                       rc_allowed)
+        pends.append((pipeline.align_batch_launch(req, device),
+                      req_rc and pipeline.align_batch_launch(req_rc, device)))
     return pends
 
 
@@ -430,24 +434,14 @@ def render_batch(batch, targets, enc_targets, mat, opts, table, sam, filt,
                              rc_allowed, device)
         per_target = complete_batch(pends, filt)
     else:
-        reads = [b["num"] for b in batch]
-        mask_lens = [len(r) // 2 for r in reads]
         per_target = []
         for enc_t in enc_targets:
-            req = pipeline.BatchRequest(
-                reads=reads, ref=enc_t, mat=mat, gapO=opts["gap_open"],
-                gapE=opts["gap_extension"], flag=flag, filters=filt,
-                filterd=0, mask_len=mask_lens, score_size=2)
-            res = pipeline.align_batch_sharded(req, mesh, device)
-            res_rc = None
-            if rc_allowed:
-                req_rc = pipeline.BatchRequest(
-                    reads=[b["num_rc"] for b in batch], ref=enc_t, mat=mat,
-                    gapO=opts["gap_open"], gapE=opts["gap_extension"],
-                    flag=flag, filters=filt, filterd=0, mask_len=mask_lens,
-                    score_size=2)
-                res_rc = pipeline.align_batch_sharded(req_rc, mesh, device)
-            per_target.append((res, res_rc))
+            req, req_rc = _strand_requests(batch, enc_t, mat, opts, filt,
+                                           flag, rc_allowed)
+            per_target.append((
+                pipeline.align_batch_sharded(req, mesh, device),
+                req_rc and pipeline.align_batch_sharded(req_rc, mesh,
+                                                        device)))
     with profiling.span("cli.render"):
         return render_results(batch, targets, enc_targets, per_target,
                               table, sam, filt, opts, err)

@@ -257,7 +257,7 @@ def ion_leaves(device):
                                 mat=dna_matrix(2, 2), gapO=3, gapE=1)
     dev = torch.device(device)
     out = []
-    for _, leaf_req, streaming in pipeline._plan_async(req):
+    for _, leaf_req, streaming in pipeline._plan_leaves(req):
         st = pipeline._leaf_prepare(leaf_req, dev, streaming)
         rp = common.pad_reads(leaf_req.reads, st.L, st.n)
         mat_ext = pipeline._to(dev, common.extend_matrix(st.req.mat),

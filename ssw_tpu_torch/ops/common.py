@@ -97,7 +97,7 @@ def pad_reads(reads: list[np.ndarray], L: int, pad_code: int) -> np.ndarray:
     return out
 
 
-# --- lane packing (ops/pack.py; users: pipeline._leaf_start, the packed
+# --- lane packing (ops/pack.py; users: pipeline._leaf_prepare, the packed
 # forward cuda_sw.forward_shared_packed and its plain version
 # scan_sw.forward_shared_ref_packed) -----------------------------------------
 #

@@ -44,8 +44,8 @@ from ssw_tpu_torch.parallel import dist
 # -- observability hook (profiling.py) --------------------------------------
 # profiled(counter) routes a GcupsCounter: per-phase seconds, useful-cell
 # counts, spans and counts (`syncs`: one per blocking device->host copy)
-# from every call in the context (sub-batches and length buckets recurse;
-# the module-level slot keeps them on one counter)
+# from every call in the context (the module-level slot keeps every leaf
+# of every call on one counter)
 profiled = profiling.profiled
 _phase = profiling.phase
 
@@ -458,6 +458,29 @@ def _dual_tier(might, streaming: bool) -> bool:
     return bool(streaming and DUAL is not False and might.any())
 
 
+def _final_tiers(st, score, might, rerun):
+    """The byte/word tier rule on the forward's scores (ref:
+    src/ssw.c:883-886): under score_size 2 a read whose score + bias
+    reaches 255 takes the word tier.  Reads whose first-pass row mask does
+    not match their final tier re-run to fix maxColumn (score and ends are
+    already exact): quirk on, the word-tier reads with word geometry (the
+    quirk makes the whole DP tier-dependent); quirk off, the
+    might-but-didn't reads with byte rows, unless the dual tier emitted both
+    tiers' maxima.  rerun(idx, word) is the caller's own re-run of reads
+    idx, which writes their results into score and its other arrays.
+    Returns each read's final tier and the scores, word-tier ones clamped
+    to the reference word kernel's ceiling, 32,767 (_mm_adds_epi16;
+    positions beyond saturation are undefined in the reference too)."""
+    word = np.full(len(score), st.word_tier)
+    if st.req.score_size == 2:
+        need_word = score + st.bias >= 255
+        word[need_word] = True
+        redo = need_word if st.quirk else might & ~need_word
+        if not st.dual and redo.any():
+            rerun(np.nonzero(redo)[0], bool(st.quirk))
+    return word, np.where(word, np.minimum(score, 32767), score)
+
+
 def _packed_inputs(plan, reads_padded, read_len, B: int, pad_code: int,
                    mat_ext_d):
     """The packed forward launch's read-side inputs on mat_ext_d's device,
@@ -492,6 +515,25 @@ def needs_quirk(mat: np.ndarray, gapE: int) -> bool:
     return int(np.min(mat)) < -2 * gapE
 
 
+def _lane_bucket(max_len) -> int:
+    """The lane bucket L of reads of at most max_len codes: the byte tier's
+    padded length, bucketed to 64.  A read's own bucket groups it
+    (_length_groups); a leaf's, that of its longest read, is its rows'
+    width."""
+    return common.bucket_size(
+        max(common.pad_total(int(max_len), word=False), 1), 64)
+
+
+def _quirk_out_of_range(L: int, mat: np.ndarray, gapO: int,
+                        gapE: int) -> bool:
+    """The quirk value-range guard: the segmented-scan bias that reproduces
+    the lane-block E quirk needs value headroom, so with the quirk on,
+    reads of lane bucket L past it run on the exact oracle instead."""
+    max_sub = int(np.max(np.abs(mat)))
+    return needs_quirk(mat, gapE) and (
+        L * (max_sub + gapE) + gapO >= int(scan_sw.SEG_BUMP))
+
+
 class _Pending:
     """An in-flight align_batch: device work launched, host work deferred.
 
@@ -519,14 +561,37 @@ def _subset_req(req: BatchRequest, idx, mask_all) -> BatchRequest:
         score_size=req.score_size)
 
 
-def _leaf_plan(reads):
-    """(per-read length buckets, max bucket) — the batching inputs, shared
-    by the sync recursion and the async planner so both split
-    identically."""
-    Ls = [common.bucket_size(max(common.pad_total(len(r), False), 1), 64)
-          for r in reads]
-    L_est = max(Ls) if Ls else 64
-    return Ls, L_est
+def _plan_leaves(req: BatchRequest) -> list:
+    """The one split of a request into leaves, for every leaf path:
+    [(global indices, leaf request, streaming)] in the order they run;
+    streaming is None for a leaf of the exact oracle (pipeline_fallback).
+    gapO <= gapE makes the whole request one oracle leaf (module
+    docstring).  Else the reads group by lane bucket (_length_groups; a
+    single group keeps the request's order); a group past the quirk
+    value-range guard is one oracle leaf, and any other splits into leaves
+    of _rows_per_leaf reads at the group's L and streaming rule: the JAX
+    package's split, which decides the order of stderr warnings."""
+    B = len(req.reads)
+    if B == 0:
+        return []
+    if req.gapO <= req.gapE:
+        return [(list(range(B)), req, None)]
+    mask_all = _as_masklen_array(req.mask_len, B)
+    Ls = [_lane_bucket(len(r)) for r in req.reads]
+    groups = _length_groups(Ls)
+    Rp_est = common.bucket_size(len(req.ref), 256)
+    out = []
+    for idx in (groups if len(groups) > 1 else [list(range(B))]):
+        L = max(Ls[i] for i in idx)
+        if _quirk_out_of_range(L, req.mat, req.gapO, req.gapE):
+            out.append((idx, _subset_req(req, idx, mask_all), None))
+            continue
+        streaming = _use_streaming(Rp_est, L)
+        b_mem = _rows_per_leaf(Rp_est, L, streaming)
+        for lo in range(0, len(idx), b_mem):
+            part = idx[lo:lo + b_mem]
+            out.append((part, _subset_req(req, part, mask_all), streaming))
+    return out
 
 
 def align_batch(req: BatchRequest, device=None) -> list[oracle.AlignResult]:
@@ -537,50 +602,27 @@ def align_batch(req: BatchRequest, device=None) -> list[oracle.AlignResult]:
     reference returns NULL (score_size=0 overflow).
     """
     with profiling.span("pipeline.align_batch"):
-        return _align_batch(req, device)
+        return _run_leaves(req, _plan_leaves(req), resolve_device(device))
 
 
-def _align_batch(req: BatchRequest, device) -> list:
-    dev = resolve_device(device)
-    B = len(req.reads)
-    if B == 0:
-        return []
-    mask_all = _as_masklen_array(req.mask_len, B)
-
-    if req.gapO <= req.gapE:
-        # bug-compatible slow path (see module docstring)
-        return pipeline_fallback(req)
-
-    # length-bucket heterogeneous batches: buckets re-enter with a uniform L
-    Ls, L_est = _leaf_plan(req.reads)
-    groups = _length_groups(Ls)
-    if len(groups) > 1:
-        results: list = [None] * B
-        for idx in groups:
-            sub = _subset_req(req, idx, mask_all)
-            for i, r in zip(idx, align_batch(sub, dev)):
-                results[i] = r
-        return results
-
-    # cap the per-column-maxima footprint (see _rows_per_leaf)
-    Rp_est = common.bucket_size(len(req.ref), 256)
-    streaming = _use_streaming(Rp_est, L_est)
-    b_mem = _rows_per_leaf(Rp_est, L_est, streaming)
-    if B > b_mem:
-        results = []
-        for lo in range(0, B, b_mem):
-            sub = _subset_req(req, range(lo, min(lo + b_mem, B)), mask_all)
-            results.extend(align_batch(sub, dev))
-        return results
-
-    with profiling.span("pipeline.launch"):
-        st = _leaf_start(req, dev, streaming)
-    if isinstance(st, list):  # quirk value-range fallback
-        return st
-    with profiling.span("pipeline.mid"):
-        _leaf_mid(st)
-    with profiling.span("pipeline.finish"):
-        return _leaf_finish(st)
+def _run_leaves(req: BatchRequest, leaves, dev) -> list:
+    """The synchronous path: the plan's leaves one after another, each
+    through prepare, queue, mid and finish on the caller's stream, or
+    through the oracle."""
+    results: list = [None] * len(req.reads)
+    for idx, leaf_req, streaming in leaves:
+        if streaming is None:
+            out = pipeline_fallback(leaf_req)
+        else:
+            with profiling.span("pipeline.launch"):
+                st = _leaf_queue(_leaf_prepare(leaf_req, dev, streaming))
+            with profiling.span("pipeline.mid"):
+                _leaf_mid(st)
+            with profiling.span("pipeline.finish"):
+                out = _leaf_finish(st)
+        for i, r in zip(idx, out):
+            results[i] = r
+    return results
 
 
 def _sm_count(dev) -> int:
@@ -640,18 +682,19 @@ def align_batch_launch(req: BatchRequest, device=None) -> _Pending:
     device sync.  Drive with align_batch_mid (downloads + reverse-pass
     launches) and align_batch_finish (results).
 
-    Paths whose host/device interleaving cannot be deferred (gapO <= gapE
-    oracle fallback, score_size != 2) run synchronously here so warning
+    Requests whose host/device interleaving cannot be deferred (an oracle
+    leaf in the plan, score_size != 2) run synchronously here so warning
     order on stderr is identical to the serial path."""
     dev = resolve_device(device)
     with profiling.span("pipeline.launch"):
-        plan = _plan_async(req)
-        if plan is not None:
+        leaves = _plan_leaves(req)
+        queued = req.score_size == 2 and all(
+            streaming is not None for _, _, streaming in leaves)
+        if queued:
             pend = _Pending()
             pend.B = len(req.reads)
             states = [_leaf_prepare(leaf_req, dev, streaming)
-                      for _, leaf_req, streaming in plan]
-            assert not any(isinstance(st, list) for st in states)  # guards
+                      for _, leaf_req, streaming in leaves]
             prev: list = []
             for wave in _forward_waves(
                     [(_forward_blocks(st), st.L) for st in states],
@@ -661,9 +704,10 @@ def align_batch_launch(req: BatchRequest, device=None) -> _Pending:
                                 after=[states[j].fwd_done for j in prev])
                 prev = wave
             # mid and finish take the leaves in the plan's order
-            pend.parts = [(idx, st) for (idx, _, _), st in zip(plan, states)]
-    if plan is None:
-        return _Pending(results=align_batch(req, dev))
+            pend.parts = [(leaf[0], st) for leaf, st in zip(leaves, states)]
+    if not queued:
+        with profiling.span("pipeline.align_batch"):
+            return _Pending(results=_run_leaves(req, leaves, dev))
     return pend
 
 
@@ -711,35 +755,6 @@ def align_batch_finish(pend: _Pending, detail=None) -> list:
     return results
 
 
-def _plan_async(req: BatchRequest):
-    """Split req into async-eligible leaves [(global indices, leaf_req,
-    streaming)], mirroring align_batch's group/memory splitting exactly;
-    None when any leaf would take a synchronous path."""
-    B = len(req.reads)
-    if B == 0:
-        return []
-    if req.gapO <= req.gapE or req.score_size != 2:
-        return None
-    mask_all = _as_masklen_array(req.mask_len, B)
-    Ls, _ = _leaf_plan(req.reads)
-    groups = _length_groups(Ls)
-    max_sub = int(np.max(np.abs(req.mat)))
-    quirk = needs_quirk(req.mat, req.gapE)
-    Rp_est = common.bucket_size(len(req.ref), 256)
-    out = []
-    for idx in (groups if len(groups) > 1 else [list(range(B))]):
-        _, L_est = _leaf_plan([req.reads[i] for i in idx])
-        if quirk and (L_est * (max_sub + req.gapE) + req.gapO
-                      >= int(scan_sw.SEG_BUMP)):
-            return None  # oracle fallback leaf
-        streaming = _use_streaming(Rp_est, L_est)
-        b_mem = _rows_per_leaf(Rp_est, L_est, streaming)
-        for lo in range(0, len(idx), b_mem):
-            part = idx[lo:lo + b_mem]
-            out.append((part, _subset_req(req, part, mask_all), streaming))
-    return out
-
-
 class _LeafState:
     """Mutable bag for one leaf batch's launch -> mid -> finish flow."""
     __slots__ = (
@@ -766,41 +781,48 @@ def _forward(st: _LeafState, reads_d, rl_d, col_word, seg_word: bool):
                                   valid_len=st.ref_len, gate=st.gate)
 
 
-def _leaf_start(req: BatchRequest, dev, streaming: bool):
-    """_leaf_prepare then _leaf_queue on the caller's stream (the
-    synchronous path)."""
-    st = _leaf_prepare(req, dev, streaming)
-    return st if isinstance(st, list) else _leaf_queue(st)
-
-
-def _leaf_prepare(req: BatchRequest, dev, streaming: bool):
-    """The leaf's host-side plan (read lengths, lane bucket, tiers, the
-    gate, the lane packing) and its target on the device (_device_ref).
-    Returns the _LeafState for _leaf_queue, or a results list when the
-    quirk value-range guard routes to the oracle fallback."""
+def _leaf_facts(req: BatchRequest, dev, streaming: bool) -> _LeafState:
+    """The host-side facts of a leaf's reads that every path reads: read
+    lengths, the lane bucket, the tiers, the gate."""
     st = _LeafState()
     st.req, st.dev, st.streaming = req, dev, streaming
     B = st.B = len(req.reads)
-    n = st.n = req.mat.shape[0]
+    st.n = req.mat.shape[0]
     st.bias = matrix_bias(req.mat)
-    ref_len = st.ref_len = len(req.ref)
+    st.ref_len = len(req.ref)
     st.mask_len = _as_masklen_array(req.mask_len, B)
-
     read_len = st.read_len = np.array([len(r) for r in req.reads],
                                       dtype=np.int32)
-    L = st.L = common.bucket_size(
-        max(common.pad_total(int(read_len.max()), word=False), 1), 64)
-    word_tier = st.word_tier = req.score_size == 1
-    quirk = st.quirk = needs_quirk(req.mat, req.gapE)
-    max_sub = st.max_sub = int(np.max(np.abs(req.mat)))
-    if quirk and L * (max_sub + req.gapE) + req.gapO >= int(scan_sw.SEG_BUMP):
-        # the segmented-scan bias that reproduces the lane-block E quirk
-        # needs value headroom; beyond it, route to the exact oracle
-        return pipeline_fallback(req)
+    st.L = _lane_bucket(read_len.max())
+    st.word_tier = req.score_size == 1
+    st.quirk = needs_quirk(req.mat, req.gapE)
+    st.max_sub = int(np.max(np.abs(req.mat)))
+    # speculative tier masks: when the quirk is off, the tiers differ ONLY
+    # in col_mask (rows padded to 16 vs 8 per lane block; byte pad rows
+    # carry stale diagonal values into maxColumn).  A read whose maximum
+    # possible score (read_len*max|mat| + bias) cannot reach 255 never
+    # overflows, so give every *potentially* overflowing read the word-tier
+    # row mask up front — if it does overflow, the reference's whole word
+    # rerun (ref: src/ssw.c:883-886) is already answered; only
+    # might-but-didn't reads re-run, with byte rows (_final_tiers).
+    st.might = _might_overflow(read_len, req.score_size, st.quirk,
+                               st.max_sub, st.bias)
+    st.dual = _dual_tier(st.might, streaming)
+    st.gate = _gate(st.L, req.gapO, req.gapE, st.max_sub)
+    st.col_word = (np.zeros(B, bool) if st.dual
+                   else np.full(B, st.word_tier) | st.might)
+    return st
+
+
+def _leaf_prepare(req: BatchRequest, dev, streaming: bool) -> _LeafState:
+    """A planned leaf's _leaf_facts, its target on the device (_device_ref)
+    and its lane packing: the _LeafState for _leaf_queue."""
+    st = _leaf_facts(req, dev, streaming)
+    B, n, L = st.B, st.n, st.L
     # pad the target to a coarse bucket with the virtual letter: padded
     # columns carry values diagonally at zero cost but can never strictly
     # exceed the running max, and are masked out of the suboptimal scan
-    Rp = common.bucket_size(ref_len, 256)
+    Rp = common.bucket_size(st.ref_len, 256)
     if streaming:
         # window sizes of the streaming suboptimal scan's per-read re-runs;
         # the device target gets Wb extra pad so window slices never clamp
@@ -813,20 +835,6 @@ def _leaf_prepare(req: BatchRequest, dev, streaming: bool):
     else:
         st.ref_ext = None
         st.ref_codes = _device_ref(req.ref, n, Rp, dev)
-    # speculative tier masks: when the quirk is off, the tiers differ ONLY
-    # in col_mask (rows padded to 16 vs 8 per lane block; byte pad rows
-    # carry stale diagonal values into maxColumn).  A read whose maximum
-    # possible score (read_len*max|mat| + bias) cannot reach 255 never
-    # overflows, so give every *potentially* overflowing read the word-tier
-    # row mask up front — if it does overflow, the reference's whole word
-    # rerun (ref: src/ssw.c:883-886) is already answered; only
-    # might-but-didn't reads re-run, with byte rows.
-    might = st.might = _might_overflow(read_len, req.score_size, quirk,
-                                       max_sub, st.bias)
-    dual = st.dual = _dual_tier(might, streaming)
-    st.gate = _gate(L, req.gapO, req.gapE, max_sub)
-    st.col_word = (np.zeros(B, bool) if dual
-                   else np.full(B, word_tier) | might)
     st.plan = st.keep = None
     if streaming and PACK is not False:
         # plan as the JAX package's Pallas path does, on the batch padded
@@ -835,9 +843,9 @@ def _leaf_prepare(req: BatchRequest, dev, streaming: bool):
         st.keep = np.concatenate(
             [np.arange(B), np.zeros(common.round_up(B, 64) - B, np.int64)])
         plan = (_pack_rule if PACK is None else _plan_pack)(
-            read_len[st.keep], st.col_word[st.keep], len(st.keep), L)
-        if plan is not None and quirk and not pack.quirk_span_ok(
-                int(plan.slot_len.max()), max_sub, req.gapO, req.gapE):
+            st.read_len[st.keep], st.col_word[st.keep], len(st.keep), L)
+        if plan is not None and st.quirk and not pack.quirk_span_ok(
+                int(plan.slot_len.max()), st.max_sub, req.gapO, req.gapE):
             plan = None  # the quirk's sub-slot block bias would not be exact
         st.plan = plan
     return st
@@ -922,7 +930,7 @@ def _leaf_mid(st: _LeafState):
     """Download forward + speculative suboptimal results, resolve tier
     re-runs, and queue the begin-finding reverse passes, on the current
     stream (the caller makes st.stream current)."""
-    req, B, ref_len = st.req, st.B, st.ref_len
+    ref_len = st.ref_len
     with _phase("forward"):
         # ONE stacked download (the only sync of the forward stage)
         profiling.count("syncs")
@@ -936,59 +944,38 @@ def _leaf_mid(st: _LeafState):
     score, end_ref, end_read = (packed[0].copy(), packed[1].copy(),
                                 packed[2].copy())
 
-    word = np.full(B, st.word_tier)
-    if req.score_size == 2:
-        need_word = score + st.bias >= 255
-        word[need_word] = True
-        # reads whose first-pass row mask does not match their final tier
-        # re-run to fix maxColumn (score/ends are already exact):
-        #   quirk on  -> word-tier reads re-run with word geometry (the
-        #                quirk makes the whole DP tier-dependent)
-        #   quirk off -> might-but-didn't reads re-run with byte rows,
-        #                unless the dual tier emitted both tiers' maxima
-        if st.dual:
-            rerun = np.zeros(B, dtype=bool)
-        else:
-            rerun = need_word if st.quirk else (st.might & ~need_word)
-        rerun_word = bool(st.quirk)
-        if rerun.any():
-            idx = np.nonzero(rerun)[0]
-            idx_d = _to(st.dev, idx)
-            k = len(idx)
-            with _phase("rerun"):
-                profiling.add_pairs(st.read_len[idx], ref_len)
-                s_r, er_r, ed_r, mc_r = _forward(
-                    st, st.reads_d[idx_d], st.rl_d[idx_d],
-                    np.full(k, rerun_word), rerun_word)
+    def rerun(idx, rerun_word: bool):
+        idx_d = _to(st.dev, idx)
+        k = len(idx)
+        with _phase("rerun"):
+            profiling.add_pairs(st.read_len[idx], ref_len)
+            s_r, er_r, ed_r, mc_r = _forward(
+                st, st.reads_d[idx_d], st.rl_d[idx_d],
+                np.full(k, rerun_word), rerun_word)
+            profiling.count("syncs")
+            packed_r = torch.stack([s_r, er_r, ed_r]).cpu().numpy()
+            score[idx] = packed_r[0]
+            end_ref[idx] = packed_r[1]
+            end_read[idx] = packed_r[2]
+        with _phase("suboptimal"):
+            if st.streaming:
+                # splice the rerun tier's block maxima in: `word` is
+                # already each read's final tier, so one composition below
+                # serves the whole leaf (in place: the leaf owns bm_d)
+                st.bm_d[idx_d] = mc_r
+            else:
+                # the rerun tier's suboptimal scan runs directly on the
+                # rerun's per-column maxima (no splice into a (B, R) array)
+                s2_r, re2_r = scan_sw.second_best_batch(
+                    mc_r, er_r, _to(st.dev, st.mask_len[idx]), ref_len,
+                    torch.full((k,), rerun_word, dtype=torch.bool,
+                               device=st.dev))
                 profiling.count("syncs")
-                packed_r = torch.stack([s_r, er_r, ed_r]).cpu().numpy()
-                score[idx] = packed_r[0]
-                end_ref[idx] = packed_r[1]
-                end_read[idx] = packed_r[2]
-            with _phase("suboptimal"):
-                if st.streaming:
-                    # splice the rerun tier's block maxima in: `word` is
-                    # already each read's final tier, so one composition
-                    # below serves the whole leaf (in place: the leaf owns
-                    # bm_d)
-                    st.bm_d[idx_d] = mc_r
-                else:
-                    # the rerun tier's suboptimal scan runs directly on the
-                    # rerun's per-column maxima (no splice into a (B, R)
-                    # array)
-                    s2_r, re2_r = scan_sw.second_best_batch(
-                        mc_r, er_r, _to(st.dev, st.mask_len[idx]), ref_len,
-                        torch.full((k,), rerun_word, dtype=torch.bool,
-                                   device=st.dev))
-                    profiling.count("syncs")
-                    packed2r = torch.stack([s2_r, re2_r]).cpu().numpy()
-                    score2[idx] = packed2r[0]
-                    ref_end2[idx] = packed2r[1]
-                del mc_r
-    # the reference word kernel saturates at 32767 (_mm_adds_epi16); clamp
-    # word-tier scores to its ceiling (positions beyond saturation are
-    # undefined in the reference too)
-    score = np.where(word, np.minimum(score, 32767), score)
+                packed2r = torch.stack([s2_r, re2_r]).cpu().numpy()
+                score2[idx] = packed2r[0]
+                ref_end2[idx] = packed2r[1]
+
+    word, score = _final_tiers(st, score, st.might, rerun)
     if st.streaming:
         with _phase("suboptimal"):
             if st.dual:
@@ -997,20 +984,7 @@ def _leaf_mid(st: _LeafState):
                 st.bm_d = torch.where(_to(st.dev, word)[:, None], bm[:, 1],
                                       bm[:, 0])
             score2, ref_end2 = _second_best_streaming(st, end_ref, word)
-
-    st.score, st.end_ref, st.end_read = score, end_ref, end_read
-    st.score2, st.ref_end2, st.word = score2, ref_end2, word
-
-    null_mask = np.zeros(B, dtype=bool)
-    if req.score_size == 0:
-        null_mask = st.score + st.bias >= 255
-        for _ in range(int(null_mask.sum())):  # ref: src/ssw.c:888
-            sys.stderr.write(
-                "Please set 2 to the score_size parameter of the function "
-                "ssw_init, otherwise the alignment results will be "
-                "incorrect.\n")
-    st.null_mask = null_mask
-    st.fin = _finish_launch(st)
+    _finish_launch(st, score, end_ref, end_read, score2, ref_end2, word)
     return st
 
 
@@ -1019,19 +993,30 @@ def _leaf_finish(st: _LeafState, detail=None) -> list:
     stream, then hand the stream back to its pool: the leaf's last
     download is done."""
     with torch.cuda.stream(st.stream):
-        results = _finish_complete(
-            st.req, st.fin, st.score, st.end_ref, st.end_read, st.score2,
-            st.ref_end2, st.null_mask, detail=detail)
+        results = _finish_complete(st, detail)
     if st.stream is not None:
         _POOLS[str(st.dev)].give(st.stream)
         st.stream = None
     return results
 
 
-def _finish_launch(st: _LeafState):
-    """Filter/flag gating + queue the per-tier begin-finding reverse
-    passes (device); no downloads."""
-    req, B, score = st.req, st.B, st.score
+def _finish_launch(st: _LeafState, score, end_ref, end_read, score2,
+                   ref_end2, word):
+    """Take the leaf's final forward results (from any path), honour
+    score_size 0 (NULL on byte overflow, ref: src/ssw.c:887-891), gate by
+    filter and flag, and queue the per-tier begin-finding reverse passes
+    (device; no downloads) into st.fin."""
+    st.score, st.end_ref, st.end_read = score, end_ref, end_read
+    st.score2, st.ref_end2, st.word = score2, ref_end2, word
+    req, B = st.req, st.B
+    st.null_mask = np.zeros(B, dtype=bool)
+    if req.score_size == 0:
+        st.null_mask = score + st.bias >= 255
+        for _ in range(int(st.null_mask.sum())):  # ref: src/ssw.c:888
+            sys.stderr.write(
+                "Please set 2 to the score_size parameter of the function "
+                "ssw_init, otherwise the alignment results will be "
+                "incorrect.\n")
 
     # which reads need the reverse pass / cigar
     aligned = score > 0
@@ -1059,18 +1044,17 @@ def _finish_launch(st: _LeafState):
         with _phase("reverse"), profiling.span("pipeline.reverse_launch"):
             handle = _reverse_launch(st, idx, W, tier)
         rev.append((idx, handle))
-    return aligned, want_begin, want_cigar, rev
+    st.fin = aligned, want_begin, want_cigar, rev
 
 
-def _finish_complete(req: BatchRequest, fin, score, end_ref, end_read,
-                     score2, ref_end2, null_mask, detail=None):
-    aligned, want_begin, want_cigar, rev = fin
+def _finish_complete(st: _LeafState, detail=None):
+    req, score, end_ref, end_read = st.req, st.score, st.end_ref, st.end_read
+    aligned, want_begin, want_cigar, rev = st.fin
     if detail is not None:
         # skip ONLY the traceback for masked reads — begins and the
         # reverse-pass warning stay (see align_batch_finish docstring)
         want_cigar = want_cigar & np.asarray(detail, dtype=bool)
-    B = len(req.reads)
-    mask_len = _as_masklen_array(req.mask_len, B)
+    B, mask_len, null_mask = st.B, st.mask_len, st.null_mask
     results: list[oracle.AlignResult | None] = []
     f = req.flag
 
@@ -1103,8 +1087,8 @@ def _finish_complete(req: BatchRequest, fin, score, end_ref, end_read,
         r.ref_end1 = int(end_ref[b])
         r.read_end1 = int(end_read[b])
         if mask_len[b] >= 15:
-            r.score2 = int(score2[b])
-            r.ref_end2 = int(ref_end2[b])
+            r.score2 = int(st.score2[b])
+            r.ref_end2 = int(st.ref_end2[b])
         else:
             r.score2, r.ref_end2 = 0, -1
         if want_begin[b]:
@@ -1264,24 +1248,6 @@ def _reverse_complete(handle, idx, end_ref, end_read):
     return (ref_begin.astype(np.int32), read_begin.astype(np.int32), s)
 
 
-def _finish_batch(req: BatchRequest, dev, score, end_ref, end_read, score2,
-                  ref_end2, word, null_mask, reads_d, ref_codes, mat_ext_d,
-                  quirk: bool) -> list:
-    """The host tail for results computed elsewhere (the sharded path):
-    begin-finding reverse passes on `dev` (reads_d: the read codes there,
-    row b = req.reads[b]; ref_codes: the target there, padded), filter and
-    flag gating, banded traceback (ref: src/ssw.c:905-977)."""
-    st = _LeafState()
-    st.req, st.dev, st.B, st.n = req, dev, len(req.reads), req.mat.shape[0]
-    st.ref_len, st.quirk = len(req.ref), quirk
-    st.score, st.end_ref, st.end_read = score, end_ref, end_read
-    st.word, st.null_mask = word, null_mask
-    st.reads_d, st.ref_codes, st.mat_ext_d = reads_d, ref_codes, mat_ext_d
-    fin = _finish_launch(st)
-    return _finish_complete(req, fin, score, end_ref, end_read, score2,
-                            ref_end2, null_mask)
-
-
 def align_batch_sharded(req: BatchRequest, mesh, device=None) -> list:
     """align_batch with the forward pass + suboptimal scan running over a
     (data x seq) device mesh (parallel/mesh.py): reads data-parallel, the
@@ -1296,32 +1262,28 @@ def align_batch_sharded(req: BatchRequest, mesh, device=None) -> list:
     if req.gapO <= req.gapE:
         return pipeline_fallback(req)
     dev = resolve_device(mesh.devices[0, 0] if device is None else device)
-    n = req.mat.shape[0]
-    bias = matrix_bias(req.mat)
-    ref_len = len(req.ref)
-    mask_len = np.maximum(_as_masklen_array(req.mask_len, B), 0)
+    st = _leaf_facts(req, dev, False)
+    n, ref_len, L = st.n, st.ref_len, st.L
+    if _quirk_out_of_range(L, req.mat, req.gapO, req.gapE):
+        return pipeline_fallback(req)
 
+    # pad the reads to a multiple of the data axis with copies of read 0
     D = mesh.shape["data"]
     S = mesh.shape["seq"]
     Bp = (B + D - 1) // D * D
-    reads = list(req.reads) + [req.reads[0]] * (Bp - B)
-    read_len = np.array([len(r) for r in reads], dtype=np.int32)
-    ml = np.concatenate([mask_len, np.full(Bp - B, 15, np.int32)])
-
-    max_rl = int(read_len.max())
-    L = common.bucket_size(max(common.pad_total(max_rl, word=False), 1), 64)
-    reads_padded = common.pad_reads(reads, L, pad_code=n)
-    word_tier = req.score_size == 1
-    quirk = needs_quirk(req.mat, req.gapE)
-    max_sub = int(np.max(np.abs(req.mat)))
-    if quirk and L * (max_sub + req.gapE) + req.gapO >= int(scan_sw.SEG_BUMP):
-        return pipeline_fallback(req)
+    pad = np.concatenate([np.arange(B), np.zeros(Bp - B, np.int64)])
+    read_len = st.read_len[pad]
+    ml = np.concatenate([np.maximum(st.mask_len, 0),
+                         np.full(Bp - B, 15, np.int32)])
+    reads_padded = common.pad_reads([req.reads[i] for i in pad], L,
+                                    pad_code=n)
 
     # pad the target so every seq shard gets the same column count; the
     # virtual letter rides diagonally at zero cost and padded columns are
     # masked out of the suboptimal scan by ref_len.  Shard 0's halo is the
     # virtual letter too.
-    halo = _window_len(max_rl, ref_len, req.mat, req.gapO, req.gapE)
+    halo = _window_len(int(read_len.max()), ref_len, req.mat, req.gapO,
+                       req.gapE)
     Rp = (ref_len + 256 * S - 1) // (256 * S) * (256 * S)
     ref_ext = np.full(halo + Rp, n, dtype=np.int32)
     ref_ext[halo:halo + ref_len] = req.ref
@@ -1331,8 +1293,7 @@ def align_batch_sharded(req: BatchRequest, mesh, device=None) -> list:
     reads_d = _to(dev, reads_padded, torch.int8)
     rl_d = _to(dev, read_len)
     ml_d = _to(dev, ml)
-    gate_thr = _gate(L, req.gapO, req.gapE, max_sub)
-    profiling.add_pairs(read_len[:B], ref_len)
+    profiling.add_pairs(st.read_len, ref_len)
 
     def fwd(rows_d, col_word, seg_word: bool):
         """The sharded forward pass of reads rows_d (device indices, or
@@ -1343,60 +1304,33 @@ def align_batch_sharded(req: BatchRequest, mesh, device=None) -> list:
             seg_word)
         out = dist.sharded_forward(
             mesh, profile, ref_ext_d, sel(rl_d), cm_d, seg_d, ss_d,
-            req.gapO, req.gapE, sel(ml_d), ref_len, halo, quirk,
-            _to(dev, col_word), max_sub=max_sub, gate=gate_thr)
+            req.gapO, req.gapE, sel(ml_d), ref_len, halo, st.quirk,
+            _to(dev, col_word), max_sub=st.max_sub, gate=st.gate)
         profiling.count("syncs")
         return [x.copy() for x in torch.stack(out).cpu().numpy()]
 
-    # speculative tier masks, like align_batch: when the quirk is off the
-    # tiers differ only in col_mask row padding, so potentially-overflowing
-    # reads get word rows (and word suboptimal edges) up front; only
-    # might-but-didn't reads re-run, with byte rows.  Quirk on: word-tier
-    # reads re-run with word geometry (the whole DP is tier-dependent).
-    might = _might_overflow(read_len, req.score_size, quirk, max_sub, bias)
-    word = np.full(Bp, word_tier)
     with _phase("forward"):
-        score, end_ref, end_read, score2, ref_end2 = fwd(
-            None, word | might, word_tier)
-    if req.score_size == 2:
-        need_word = score + bias >= 255
-        word[need_word] = True
-        rerun = need_word if quirk else (might & ~need_word)
-        rerun_word = bool(quirk)
-        if rerun.any():
-            # subset re-run, padded to a stable size that stays divisible
-            # by the data axis
-            idx = np.nonzero(rerun)[0]
-            k = len(idx)
-            unit = 64 if 64 % D == 0 else 64 * D
-            pad = common.round_up(k, unit) - k
-            idx_p = np.concatenate([idx, np.repeat(idx[:1], pad)])
-            with _phase("rerun"):
-                profiling.add_pairs(read_len[idx], ref_len)
-                s_r, er_r, ed_r, s2_r, re2_r = (
-                    x[:k] for x in fwd(_to(dev, idx_p),
-                                       np.full(len(idx_p), rerun_word),
-                                       rerun_word))
-            score[idx] = s_r
-            end_ref[idx] = er_r
-            end_read[idx] = ed_r
-            score2[idx] = s2_r
-            ref_end2[idx] = re2_r
-    score = np.where(word, np.minimum(score, 32767), score)
+        fwd_out = fwd(None, st.col_word[pad], st.word_tier)
 
+    def rerun(idx, rerun_word: bool):
+        # padded to a stable size that stays divisible by the data axis
+        k = len(idx)
+        unit = 64 if 64 % D == 0 else 64 * D
+        idx_p = np.concatenate(
+            [idx, np.repeat(idx[:1], common.round_up(k, unit) - k)])
+        with _phase("rerun"):
+            profiling.add_pairs(read_len[idx], ref_len)
+            out = fwd(_to(dev, idx_p), np.full(len(idx_p), rerun_word),
+                      rerun_word)
+        for a, r in zip(fwd_out, out):
+            a[idx] = r[:k]
+
+    word, score = _final_tiers(st, fwd_out[0], st.might[pad], rerun)
+    _, end_ref, end_read, score2, ref_end2 = fwd_out
+    st.reads_d, st.mat_ext_d = reads_d, mat_ext_d
+    st.ref_codes = ref_ext_d[halo:]
     # drop the data-parallel padding before the host stages (no duplicate
-    # warnings or tracebacks), and honour score_size as align_batch does
-    # (0: NULL on byte overflow; ref: src/ssw.c:887-891)
-    score, end_ref, end_read = score[:B], end_ref[:B], end_read[:B]
-    score2, ref_end2, word = score2[:B], ref_end2[:B], word[:B]
-    null_mask = np.zeros(B, dtype=bool)
-    if req.score_size == 0:
-        null_mask = score + bias >= 255
-        for _ in range(int(null_mask.sum())):  # ref: src/ssw.c:888
-            sys.stderr.write(
-                "Please set 2 to the score_size parameter of the function "
-                "ssw_init, otherwise the alignment results will be "
-                "incorrect.\n")
-    return _finish_batch(req, dev, score, end_ref, end_read, score2,
-                         ref_end2, word, null_mask, reads_d,
-                         ref_ext_d[halo:], mat_ext_d, quirk)
+    # warnings or tracebacks)
+    _finish_launch(st, score[:B], end_ref[:B], end_read[:B], score2[:B],
+                   ref_end2[:B], word[:B])
+    return _leaf_finish(st)

@@ -51,7 +51,7 @@ def _three_leaves(seed):
     lengths = np.concatenate([rng.integers(lo, hi, 64) for lo, hi in
                               ((20, 60), (70, 120), (130, 190))])
     req = _req(_reads(rng, ref, lengths, 0.05), ref)
-    assert len(pipeline._plan_async(req)) == 3
+    assert len(pipeline._plan_leaves(req)) == 3
     return req
 
 
@@ -237,7 +237,7 @@ def _streams_distinct(pends):
 @pytest.mark.cuda
 def test_card_ion_headline_pooled_equals_align_batch(card):
     req = _ion_headline()
-    leaves = len(pipeline._plan_async(req))
+    leaves = len(pipeline._plan_leaves(req))
     assert leaves >= 2
     want, want_err = _run(lambda: pipeline.align_batch(req, card))
     with pipeline.profiled(profiling.GcupsCounter()) as c:
@@ -322,7 +322,7 @@ def test_card_ref_cache_evicted_while_leaves_read(card):
             del junk
         got, got_err = _run(lambda: [_async(p) for p in pends])
     assert c.counts["leaf_streams"] == sum(
-        len(pipeline._plan_async(r)) for r in reqs)
+        len(pipeline._plan_leaves(r)) for r in reqs)
     want, want_err = _run(lambda: [pipeline.align_batch(r, card)
                                    for r in reqs])
     for w, g in zip(want, got):

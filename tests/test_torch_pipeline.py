@@ -115,18 +115,22 @@ def test_gap_open_not_above_extend_uses_oracle(capsys):
     _compare(req, capsys)
 
 
-def test_mixed_lengths_several_groups(capsys):
+def _mixed_lengths_req(n_long=8):
     """70 short reads fill the 64-row bucket on their own; the longer
     reads form a second length group (pipeline._length_groups)."""
     rng = np.random.default_rng(6)
     ref = rng.integers(0, 4, 700).astype(np.int8)
     reads = (_reads(rng, ref, 70, 15, 50, 0.08, 4)
-             + _reads(rng, ref, 8, 130, 180, 0.08, 4))
-    Ls, _ = pipeline._leaf_plan(reads)
-    assert len(pipeline._length_groups(Ls)) == 2
-    req = jax_pipeline.BatchRequest(
+             + _reads(rng, ref, n_long, 130, 180, 0.08, 4))
+    return jax_pipeline.BatchRequest(
         reads=reads, ref=ref, mat=dna_matrix(2, 2), gapO=3, gapE=1,
         mask_len=[max(len(r) // 2, 15) for r in reads])
+
+
+def test_mixed_lengths_several_groups(capsys):
+    req = _mixed_lengths_req()
+    Ls = [pipeline._lane_bucket(len(r)) for r in req.reads]
+    assert len(pipeline._length_groups(Ls)) == 2
     _compare(req, capsys)
 
 
@@ -194,11 +198,21 @@ def test_async_detail_matches_align_batch(capsys):
     capsys.readouterr()
 
 
-def test_async_sync_paths_complete_at_launch(capsys):
-    """score_size != 2 and gapO <= gapE run synchronously inside launch,
-    so stderr order stays that of the serial driver."""
-    for req in (_overflow_dna_req(score_size=0),
-                _dna_req(seed=5, gapO=1, gapE=2, n_reads=8)):
+def test_async_sync_paths_complete_at_launch(monkeypatch, capsys):
+    """score_size != 2, gapO <= gapE and a length group past the quirk
+    value-range guard (an oracle leaf of the plan; here the long reads'
+    group, by a stand-in guard) run synchronously inside launch, so stderr
+    order stays that of the serial path."""
+    mixed = pipeline.BatchRequest.from_fields(_mixed_lengths_req(n_long=2))
+    unguarded = pipeline.align_batch(mixed, device="cpu")
+    capsys.readouterr()
+    for req, guard in ((_overflow_dna_req(score_size=0), None),
+                       (_dna_req(seed=5, gapO=1, gapE=2, n_reads=8), None),
+                       (mixed, lambda L, *a: L > 64)):
+        if guard is not None:
+            monkeypatch.setattr(pipeline, "_quirk_out_of_range", guard)
+            assert [s for _, _, s in pipeline._plan_leaves(req)] == [
+                False, None]
         preq = pipeline.BatchRequest.from_fields(req)
         sync = pipeline.align_batch(preq, device="cpu")
         err_sync = capsys.readouterr().err
@@ -207,6 +221,7 @@ def test_async_sync_paths_complete_at_launch(capsys):
         got = pipeline.align_batch_finish(pend)
         assert capsys.readouterr().err == err_sync
         _assert_same(sync, got)
+    _assert_same(unguarded, got)  # the oracle leaf's reads kept their places
 
 
 def test_memory_split_matches_jax_rules(monkeypatch, capsys):
@@ -230,6 +245,6 @@ def test_memory_split_matches_jax_rules(monkeypatch, capsys):
         monkeypatch.setattr(mod, "MAXCOL_HARD_CAP", 64 * 2 * 768)
     monkeypatch.setattr(pipeline, "STREAM_SUBOPT", False)
     monkeypatch.setenv("SSW_TPU_STREAM_SUBOPT", "0")
-    plan = pipeline._plan_async(pipeline.BatchRequest.from_fields(req))
+    plan = pipeline._plan_leaves(pipeline.BatchRequest.from_fields(req))
     assert [len(idx) for idx, _, _ in plan] == [64, 64, 22]
     _compare(req, capsys)

@@ -360,7 +360,7 @@ def test_async_streaming_matches_align_batch(monkeypatch, capsys,
                                              stream_calls):
     req = pipeline.BatchRequest.from_fields(_tandem_repeats())
     monkeypatch.setattr(pipeline, "STREAM_SUBOPT", True)
-    assert all(s for _, _, s in pipeline._plan_async(req))
+    assert all(s for _, _, s in pipeline._plan_leaves(req))
     sync = pipeline.align_batch(req, device="cpu")
     err_sync = capsys.readouterr().err
     pend = pipeline.align_batch_launch(req, device="cpu")
@@ -412,7 +412,7 @@ def test_streaming_leaf_split_is_jax(monkeypatch):
     reads = _mk_reads(rng, ref, 2100, 90, 110, 0.0, 5)
     req = _req(reads, ref, _dna_mat(), 3)
     assert [len(i) for i, _, _ in jax_pipeline._plan_async(req, "scan")] == \
-        [len(i) for i, _, _ in pipeline._plan_async(
+        [len(i) for i, _, _ in pipeline._plan_leaves(
             pipeline.BatchRequest.from_fields(req))] == [1024, 1024, 52]
     for L in (64, 128, 256, 512, 1024):
         assert pipeline._rows_per_leaf(1 << 20, L, True) == max(
